@@ -1,0 +1,190 @@
+// Per-sub-block surface-plane fit: the math of housescan_tpu/ops/
+// planes_pallas.py plane_fields_for_block (line 76), used inside K4
+// (tsdf_stream.cu). Operation for operation the plain version
+// housescan_tpu_torch/ops/planes.py: float32 moment terms summed in
+// double and rounded once, then the eigen analysis in float32.
+#pragma once
+
+#include "common.cuh"
+
+#define HS_N_FIELDS 16
+#define HS_NSUB 16
+#define HS_NMOM 19
+
+__device__ __forceinline__ float hs_alpha(float t0, float t1) {
+  const float denom = t0 - t1;
+  const bool ok = fabsf(denom) > 1e-12f;
+  const float a = ok ? t0 / denom : 0.5f;
+  return hs_clamp_max(hs_clamp_min(a, 0.0f), 1.0f);
+}
+
+// Moment terms of one crossing family at one voxel, added into acc[0..10].
+__device__ __forceinline__ void hs_crossing_terms(double* acc, float mk, float wgt, float px,
+                                                  float py, float pz) {
+  const float m = mk * wgt;
+  acc[0] += (double)m;
+  acc[1] += (double)(m * px);
+  acc[2] += (double)(m * py);
+  acc[3] += (double)(m * pz);
+  acc[4] += (double)(m * px * px);
+  acc[5] += (double)(m * py * py);
+  acc[6] += (double)(m * pz * pz);
+  acc[7] += (double)(m * px * py);
+  acc[8] += (double)(m * px * pz);
+  acc[9] += (double)(m * py * pz);
+  acc[10] += (double)mk;
+}
+
+__device__ __forceinline__ float hs_wt(float wa, float wb) {
+  return hs_clamp_max(fminf(wa, wb), 8.0f) * 0.125f;
+}
+
+// Moments of voxel (ix, iy, z) of a chunk held as t[ix][iy][z], w[...]
+// (8 x 8 x 128 floats each).
+__device__ __forceinline__ void hs_voxel_moments(double* acc, const float* t, const float* w,
+                                                 int ix, int iy, int z) {
+  const int o = (ix * 8 + iy) * 128 + z;
+  const float tv = t[o], wv = w[o];
+  const bool obs = wv > 0.0f;
+  const float x = (float)ix, yf = (float)iy;
+  const float zz = (float)(z & 7);
+  {  // +z neighbour (last lane of the chunk masked)
+    const int on = z < 127 ? o + 1 : o;
+    const float tn = t[on], wn = w[on];
+    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
+                     (z < 127 ? 1.0f : 0.0f);
+    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf, zz + hs_alpha(tv, tn));
+  }
+  {  // +y neighbour
+    const int on = iy < 7 ? o + 128 : o;
+    const float tn = t[on], wn = w[on];
+    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
+                     (iy < 7 ? 1.0f : 0.0f);
+    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf + hs_alpha(tv, tn), zz);
+  }
+  {  // +x neighbour
+    const int on = ix < 7 ? o + 1024 : o;
+    const float tn = t[on], wn = w[on];
+    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
+                     (ix < 7 ? 1.0f : 0.0f);
+    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x + hs_alpha(tv, tn), yf, zz);
+  }
+  const float band = (obs && fabsf(tv) < 0.99f) ? 1.0f : 0.0f;
+  acc[11] += (double)band;
+  acc[12] += (double)(band * tv);
+  acc[13] += (double)(band * x);
+  acc[14] += (double)(band * yf);
+  acc[15] += (double)(band * zz);
+  acc[16] += (double)(band * x * tv);
+  acc[17] += (double)(band * yf * tv);
+  acc[18] += (double)(band * zz * tv);
+}
+
+struct HsInv3 {
+  float rxx, ryy, rzz, cxy, cxz, cyz, det;
+};
+
+__device__ __forceinline__ float hs_inv_iter(const HsInv3& c, float& bx, float& by, float& bz) {
+  const float ux = (bx * (c.ryy * c.rzz - c.cyz * c.cyz) - c.cxy * (by * c.rzz - c.cyz * bz) +
+                    c.cxz * (by * c.cyz - c.ryy * bz)) / c.det;
+  const float uy = (c.rxx * (by * c.rzz - bz * c.cyz) - bx * (c.cxy * c.rzz - c.cyz * c.cxz) +
+                    c.cxz * (c.cxy * bz - by * c.cxz)) / c.det;
+  const float uz = (c.rxx * (c.ryy * bz - by * c.cyz) - c.cxy * (c.cxy * bz - by * c.cxz) +
+                    bx * (c.cxy * c.cyz - c.ryy * c.cxz)) / c.det;
+  const float norm = sqrtf(ux * ux + uy * uy + uz * uz);
+  const float safe_n = hs_clamp_min(norm, 1e-20f);
+  bx = ux / safe_n;
+  by = uy / safe_n;
+  bz = uz / safe_n;
+  return norm;
+}
+
+// Fields of sub-block s of chunk (ci, cj, ck) from its 19 float moments.
+__device__ void hs_plane_fields(const float* acc, int ci, int cj, int ck, int s, float vs,
+                                float ox, float oy, float oz, int nbx, int nzc, float* out) {
+  const float ridge = 1e-4f;
+  const float cnt = acc[10];
+  const float n0 = hs_clamp_min(acc[0], 1e-6f);
+  const float mx = acc[1] / n0, my = acc[2] / n0, mz = acc[3] / n0;
+  const float cxx = hs_clamp_min(acc[4] / n0 - mx * mx, 0.0f);
+  const float cyy = hs_clamp_min(acc[5] / n0 - my * my, 0.0f);
+  const float czz = hs_clamp_min(acc[6] / n0 - mz * mz, 0.0f);
+  const float cxy = acc[7] / n0 - mx * my;
+  const float cxz = acc[8] / n0 - mx * mz;
+  const float cyz = acc[9] / n0 - my * mz;
+
+  HsInv3 c;
+  c.rxx = cxx + ridge;
+  c.ryy = cyy + ridge;
+  c.rzz = czz + ridge;
+  c.cxy = cxy;
+  c.cxz = cxz;
+  c.cyz = cyz;
+  const float det = c.rxx * (c.ryy * c.rzz - cyz * cyz) - cxy * (cxy * c.rzz - cyz * cxz) +
+                    cxz * (cxy * cyz - c.ryy * cxz);
+  c.det = fabsf(det) > 1e-18f ? det : 1.0f;
+
+  const float seed_x = (cxx <= cyy && cxx <= czz) ? 1.0f : 0.0f;
+  const float seed_z = (czz < cxx && czz < cyy) ? 1.0f : 0.0f;
+  float nx = seed_x, ny = 1.0f - seed_x - seed_z, nz = seed_z;
+  hs_inv_iter(c, nx, ny, nz);
+  hs_inv_iter(c, nx, ny, nz);
+  const float growth = hs_inv_iter(c, nx, ny, nz);
+  const float lam_min = hs_clamp_min(1.0f / hs_clamp_min(growth, 1e-6f) - ridge, 0.0f);
+  const bool ok_plane = lam_min < 0.3f;
+
+  const float trace = cxx + cyy + czz;
+  const float px_ = (cxx >= cyy && cxx >= czz) ? 1.0f : 0.0f;
+  const float pz_ = (czz > cxx && czz > cyy) ? 1.0f : 0.0f;
+  const float py_ = 1.0f - px_ - pz_;
+  float ux = cxx * px_ + cxy * py_ + cxz * pz_;
+  float uy = cxy * px_ + cyy * py_ + cyz * pz_;
+  float uz = cxz * px_ + cyz * py_ + czz * pz_;
+  const float un = hs_clamp_min(sqrtf(ux * ux + uy * uy + uz * uz), 1e-20f);
+  ux = ux / un;
+  uy = uy / un;
+  uz = uz / un;
+  const float lam_max = ux * (cxx * ux + cxy * uy + cxz * uz) +
+                        uy * (cxy * ux + cyy * uy + cyz * uz) +
+                        uz * (cxz * ux + cyz * uy + czz * uz);
+  const float lam_mid = hs_clamp_min(trace - lam_max - lam_min, 0.0f);
+  const bool ok_spread = lam_mid > 0.1f;
+
+  const float g0 = hs_clamp_min(acc[11], 1.0f);
+  const float gs = acc[12] / g0;
+  const float gmx = acc[13] / g0, gmy = acc[14] / g0, gmz = acc[15] / g0;
+  const float gx_o = acc[16] / g0 - gmx * gs;
+  const float gy_o = acc[17] / g0 - gmy * gs;
+  const float gz_o = acc[18] / g0 - gmz * gs;
+  const float sign = (nx * gx_o + ny * gy_o + nz * gz_o < 0.0f) ? -1.0f : 1.0f;
+  nx = nx * sign;
+  ny = ny * sign;
+  nz = nz * sign;
+
+  const float sub = (float)s;
+  const float wx = ox + ((float)(ci * 8) + mx + 0.5f) * vs;
+  const float wy = oy + ((float)(cj * 8) + my + 0.5f) * vs;
+  const float wz = oz + ((float)(ck * 128) + sub * 8.0f + mz + 0.5f) * vs;
+  const float d = nx * wx + ny * wy + nz * wz;
+
+  const bool valid = (cnt >= 6.0f) && ok_plane && ok_spread;
+  const float vf = valid ? 1.0f : 0.0f;
+  const long long sid = ((((long long)ci * nbx + cj) * nzc + ck) * HS_NSUB);
+  const float r_inplane = 1.8f * sqrtf(hs_clamp_min(trace - lam_min, 0.0f));
+  out[0] = nx * vf;
+  out[1] = ny * vf;
+  out[2] = nz * vf;
+  out[3] = d * vf;
+  out[4] = vf;
+  out[5] = cnt;
+  out[6] = (float)sid + sub;
+  out[7] = (r_inplane + 1.5f) * vs;
+  out[8] = wx;
+  out[9] = wy;
+  out[10] = wz;
+  out[11] = 0.0f;
+  out[12] = lam_min;
+  out[13] = 0.0f;
+  out[14] = 0.0f;
+  out[15] = 0.0f;
+}

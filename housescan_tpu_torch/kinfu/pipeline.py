@@ -1,0 +1,216 @@
+"""The KinFu tracking + fusion loop.
+
+One ``kinfu_step``: bilateral filter (K1) -> pyramid -> model-map pyramid
+and gradients -> per-level ICP (K3) -> tracking-loss gate -> work-list
+TSDF integrate with the plane refit (K4) -> plane raycast (K6) and seam
+masking, which gives the next frame's model maps. The step runs entirely
+on the state's device and never waits on it from the host.
+
+The step requires a cubic packed int32 volume that tiles into
+(8, 8, 128) chunks. The reference's XLA fallback path (dense integrate
+and the TSDF ray marcher) and ``forced_pose`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from housescan_tpu_torch.geometry.transform import full_fp32_matmul
+from housescan_tpu_torch.kinfu import maps as mp
+from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.kinfu.icp import icp_track
+from housescan_tpu_torch.kinfu.preprocess import build_pyramid
+from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, tsdf_new
+from housescan_tpu_torch.ops.raycast_planes import raycast_planes
+from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+
+
+class KinFuState(NamedTuple):
+    volume: TsdfVolume
+    planes: torch.Tensor  # (R/8, R/8, R/128, 16, 16) persistent sub-block planes
+    pose: torch.Tensor  # (4, 4) current camera-to-world
+    model_maps: torch.Tensor  # (8, H, W) raycast at model_pose
+    model_pose: torch.Tensor  # (4, 4)
+    frame_index: torch.Tensor  # () int32
+    last_rmse: torch.Tensor  # () f32 ICP rmse of the last step
+    last_corr: torch.Tensor  # () int32 ICP correspondences of the last step
+    # () bool: False = tracking lost, the frame was dropped (not
+    # integrated; pose and model unchanged)
+    last_tracked: torch.Tensor
+
+
+def kinfu_init(
+    intr: Intrinsics,
+    resolution: int = 512,
+    size_m: float = 3.0,
+    trunc: float = 0.03,
+    origin=None,
+    init_pose=None,
+    dtype=torch.int32,
+    device="cpu",
+) -> KinFuState:
+    """Fresh state with every tensor on ``device``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        full_fp32_matmul()
+    if resolution % 128:
+        raise ValueError("kinfu_init: resolution must tile into 128-voxel chunks")
+    vol = tsdf_new(resolution, size_m, trunc, origin, dtype, device=device)
+    pose = (
+        torch.eye(4, dtype=torch.float32, device=device)
+        if init_pose is None
+        else torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(device).clone()
+    )
+    return KinFuState(
+        volume=vol,
+        planes=torch.zeros(planes_shape(resolution), dtype=torch.float32, device=device),
+        pose=pose,
+        model_maps=torch.zeros((mp.MODEL_ROWS, intr.height, intr.width), dtype=torch.float32, device=device),
+        model_pose=pose.clone(),
+        frame_index=torch.zeros((), dtype=torch.int32, device=device),
+        last_rmse=torch.zeros((), dtype=torch.float32, device=device),
+        last_corr=torch.zeros((), dtype=torch.int32, device=device),
+        last_tracked=torch.ones((), dtype=torch.bool, device=device),
+    )
+
+
+@torch.no_grad()
+def kinfu_step(
+    state: KinFuState,
+    raw_depth: torch.Tensor,
+    intr: Intrinsics,
+    levels: int = 3,
+    iterations: Tuple[int, ...] = (10, 5, 4),
+    dist_threshold=None,
+    angle_threshold: float = 0.5236,
+    max_weight: float = 128.0,
+    z_min: float = 0.3,
+) -> KinFuState:
+    """Track and fuse one (H, W) depth frame. The volume and planes of
+    ``state`` are updated IN PLACE (the reference donates them); every
+    other field of the returned state is new."""
+    vol = state.volume
+    if vol.data.dtype != torch.int32 or len(set(vol.dims)) != 1 or vol.dims[0] % 128:
+        raise ValueError("kinfu_step: needs a cubic packed int32 volume tiling into 128-voxel chunks")
+    raw_depth = raw_depth.to(device=vol.data.device, dtype=torch.float32)
+    pyr = build_pyramid(raw_depth, intr, levels=levels)
+    model_pyr = mp.build_map_pyramid(state.model_maps, levels)
+    is_first = state.frame_index == 0
+
+    # Adaptive tight gate: half a voxel, floored at 6 mm; the finest
+    # level's loose gate equals it, the coarser ones are 5 and 10 cm.
+    tight = torch.clamp(0.5 * vol.voxel_size, min=0.006)
+    if dist_threshold is None:
+        dist_threshold = (tight, 0.05, 0.10)
+    icp = icp_track(
+        list(pyr.maps),
+        model_pyr,
+        state.model_pose,
+        intr,
+        iterations=iterations,
+        dist_threshold=dist_threshold,
+        angle_threshold=angle_threshold,
+        tight_threshold=tight,
+    )
+    new_pose = torch.where(is_first, state.pose, icp.pose)
+
+    # Tracking-loss gate: drop the frame when the correspondence set
+    # collapsed or the live view disagrees with the model (mean clipped
+    # |live - model| depth over jointly valid pixels > 0.15 m), unless
+    # the model itself was too sparse to track against (growth phase).
+    min_corr = max(32, int(0.002 * intr.width * intr.height))
+    model_valid = state.model_maps[mp.MD_VALID] > 0.5
+    model_px = model_valid.sum()
+    both_valid = (raw_depth > 0) & model_valid
+    view_incons = torch.where(
+        both_valid,
+        torch.clamp((raw_depth - state.model_maps[mp.MD_DEPTH]).abs(), max=1.0),
+        0.0,
+    ).sum() / torch.clamp(both_valid.sum(), min=1)
+    tracked = (
+        is_first
+        | ((icp.n_corr >= min_corr) & (view_incons <= 0.15))
+        | (model_px < 4 * min_corr)
+    )
+    new_pose = torch.where(tracked, new_pose, state.pose)
+    depth_eff = torch.where(tracked, raw_depth, 0.0)
+
+    volume, planes = tsdf_integrate_stream(
+        vol, state.planes, depth_eff, new_pose, intr, max_weight=max_weight
+    )
+    model_maps = raycast_planes(planes, new_pose, intr, volume, z_min=z_min)
+    model_maps = torch.where(tracked, model_maps, state.model_maps)
+
+    return KinFuState(
+        volume=volume,
+        planes=planes,
+        pose=new_pose,
+        model_maps=model_maps,
+        model_pose=torch.where(tracked, new_pose, state.model_pose),
+        frame_index=state.frame_index + 1,
+        last_rmse=torch.where(is_first, 0.0, icp.rmse),
+        last_corr=torch.where(is_first, 0, icp.n_corr).to(torch.int32),
+        last_tracked=tracked,
+    )
+
+
+def kinfu_run(
+    state: KinFuState,
+    depth_stream: torch.Tensor,
+    intr: Intrinsics,
+    **step_kwargs,
+) -> Tuple[KinFuState, torch.Tensor]:
+    """Fuse an (N, H, W) stream: (final state, (N, 4, 4) poses)."""
+    poses = []
+    for i in range(depth_stream.shape[0]):
+        state = kinfu_step(state, depth_stream[i], intr, **step_kwargs)
+        poses.append(state.pose)
+    return state, torch.stack(poses)
+
+
+STATE_FIELDS = (
+    "data", "origin", "voxel_size", "trunc", "planes", "pose", "model_maps",
+    "model_pose", "frame_index", "last_rmse", "last_corr", "last_tracked",
+)
+
+
+def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> KinFuState:
+    """KinFuState from numpy arrays keyed by ``STATE_FIELDS`` (``data`` is
+    the packed int32 volume); e.g. the fields of a reference state."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        full_fp32_matmul()
+
+    def t(k, dtype):
+        return torch.as_tensor(np.array(d[k]), dtype=dtype).to(device)
+
+    return KinFuState(
+        volume=TsdfVolume(
+            data=t("data", torch.int32),
+            origin=t("origin", torch.float32),
+            voxel_size=t("voxel_size", torch.float32),
+            trunc=t("trunc", torch.float32),
+        ),
+        planes=t("planes", torch.float32),
+        pose=t("pose", torch.float32),
+        model_maps=t("model_maps", torch.float32),
+        model_pose=t("model_pose", torch.float32),
+        frame_index=t("frame_index", torch.int32),
+        last_rmse=t("last_rmse", torch.float32),
+        last_corr=t("last_corr", torch.int32),
+        last_tracked=t("last_tracked", torch.bool),
+    )
+
+
+def state_to_numpy(state: KinFuState) -> Dict[str, np.ndarray]:
+    """Inverse of ``state_from_numpy``."""
+    vals = (
+        state.volume.data, state.volume.origin, state.volume.voxel_size,
+        state.volume.trunc, state.planes, state.pose, state.model_maps,
+        state.model_pose, state.frame_index, state.last_rmse,
+        state.last_corr, state.last_tracked,
+    )
+    return {k: v.detach().cpu().numpy() for k, v in zip(STATE_FIELDS, vals)}

@@ -1,0 +1,296 @@
+"""Chunk classification prepass of the streaming TSDF integrate.
+
+Classifies every (8, 8, 128) chunk without touching the volume:
+
+  * the corners of each chunk's four z-quarters are projected; their
+    clipped image bbox bounds every voxel's footprint;
+  * footprint depth min/max come from a 3x3-dilated min/max mip pyramid
+    of the depth image (one cell read per quarter);
+  * chunks classify SKIP (out of frustum, fully behind the surface,
+    projecting only to invalid depth, or free and saturated), FREE
+    (confidently in front of all valid depth), BAND (exact depth needed,
+    footprint bounded) or REFINE (a quarter straddles the camera plane:
+    the kernel recomputes the bbox per voxel). All tests err toward BAND.
+
+The reference packs two chunks per work-list entry into 14-bit half
+descriptors for the TPU's grid; this port lists single chunks as decoded
+descriptor rows (ci, cj, ck, class, level, v0, u0). Every chunk the
+reference updates is listed with the same descriptor; unlisted chunks
+keep their volume data and planes bit-identical. Plain tensor code, no
+kernel. The pure-free superblock split (``free_split``) and x-pairing
+are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.ops.cuda_lib import host_tensor
+
+BIG = 1.0e9
+CLS_FREE = 0
+CLS_BAND = 1
+CLS_REFINE = 3
+
+# Band-window geometry (matches ops/tsdf_stream.py).
+WIN_V = 32
+WIN_U = 128
+
+
+class WorkList(NamedTuple):
+    """Listed chunks first (raster order), then the skipped ones."""
+
+    desc: torch.Tensor  # (n_chunks, 8) int32 rows [ci, cj, ck, cls, level, v0, u0, 0]
+    count: torch.Tensor  # (1,) int32 number of listed chunks
+
+
+def _coarsen(m: torch.Tensor, pad_value: float, reduce_min: bool) -> torch.Tensor:
+    h, w = m.shape
+    hp, wp = -(-h // 2) * 2, -(-w // 2) * 2
+    mp = torch.full((hp, wp), pad_value, dtype=m.dtype, device=m.device)
+    mp[:h, :w] = m
+    r = mp.reshape(hp // 2, 2, wp // 2, 2)
+    return r.amin(dim=(1, 3)) if reduce_min else r.amax(dim=(1, 3))
+
+
+def _dilate3_max(m: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(m[None, None], 3, stride=1, padding=1)[0, 0]
+
+
+def _dilate3_min(m: torch.Tensor) -> torch.Tensor:
+    return -_dilate3_max(-m)
+
+
+def build_hiz(depth: torch.Tensor):
+    """Dilated min/max/valid depth pyramid, flattened: level l spans
+    table[offsets[l] : offsets[l] + rows[l]*cols[l]], cell 8 * 2**l px."""
+    h, w = depth.shape
+    valid = depth > 0.0
+    bh, bw = h // 8, w // 8
+    blocks = depth[: bh * 8, : bw * 8].reshape(bh, 8, bw, 8)
+    bval = valid[: bh * 8, : bw * 8].reshape(bh, 8, bw, 8)
+    bmin = torch.where(bval, blocks, BIG).amin(dim=(1, 3))
+    bmax = torch.where(bval, blocks, 0.0).amax(dim=(1, 3))
+    ball = bval.to(torch.float32).amin(dim=(1, 3))
+
+    mins, maxs, alls = [bmin], [bmax], [ball]
+    for _ in range(4):
+        mins.append(_coarsen(mins[-1], BIG, True))
+        maxs.append(_coarsen(maxs[-1], 0.0, False))
+        alls.append(_coarsen(alls[-1], BIG, True))
+
+    dmin_t, dmax_t, val_t, offs, rows, cols = [], [], [], [], [], []
+    off = 0
+    for mn, mx, al in zip(mins, maxs, alls):
+        r, c = mn.shape
+        dmin_t.append(_dilate3_min(mn).reshape(-1))
+        dmax_t.append(_dilate3_max(mx).reshape(-1))
+        val_t.append(_dilate3_min(al).reshape(-1))
+        offs.append(off)
+        rows.append(r)
+        cols.append(c)
+        off += r * c
+    return torch.cat(dmin_t), torch.cat(dmax_t), torch.cat(val_t), offs, rows, cols
+
+
+def build_worklist(
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    intr: Intrinsics,
+    resolution,
+    voxel_size: torch.Tensor,
+    origin: torch.Tensor,
+    trunc: torch.Tensor,
+    sat_quarters: torch.Tensor = None,
+) -> WorkList:
+    """Classify all chunks and list the non-SKIP ones.
+
+    ``sat_quarters`` ((n, 4) bool, chunk raster order) marks z-quarters
+    whose free space is saturated (planes field 11): a free + saturated
+    quarter counts as behind."""
+    dims = (resolution,) * 3 if isinstance(resolution, int) else tuple(int(d) for d in resolution)
+    nbx_x, nbx_y, nzc = dims[0] // 8, dims[1] // 8, dims[2] // 128
+    n = nbx_x * nbx_y * nzc
+    dev = depth.device
+    f32 = torch.float32
+
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ci = ids // (nbx_y * nzc)
+    cj = (ids // nzc) % nbx_y
+    ck = ids % nzc
+
+    vs = voxel_size
+    x0 = origin[0] + ci.to(f32) * (8.0 * vs)
+    y0 = origin[1] + cj.to(f32) * (8.0 * vs)
+    z0 = origin[2] + ck.to(f32) * (128.0 * vs)
+
+    rot = pose[:3, :3]
+    t = pose[3, :3]
+    w_img = float(intr.width)
+    h_img = float(intr.height)
+
+    def project_zplane(dzq):
+        outs = []
+        for dx in (0.0, 8.0):
+            for dy in (0.0, 8.0):
+                wx = x0 + dx * vs - t[0]
+                wy = y0 + dy * vs - t[1]
+                wz = z0 + dzq * vs - t[2]
+                xc = wx * rot[0, 0] + wy * rot[0, 1] + wz * rot[0, 2]
+                yc = wx * rot[1, 0] + wy * rot[1, 1] + wz * rot[1, 2]
+                zc = wx * rot[2, 0] + wy * rot[2, 1] + wz * rot[2, 2]
+                safe = torch.clamp(zc, min=1e-6)
+                uf = intr.fx * xc / safe + intr.cx
+                vf = intr.fy * yc / safe + intr.cy
+                outs.append((uf, vf, zc))
+        return outs
+
+    zplanes = [project_zplane(dz) for dz in (0.0, 32.0, 64.0, 96.0, 128.0)]
+
+    def full(v):
+        return torch.full((n,), v, dtype=f32, device=dev)
+
+    quarters = []
+    for q in range(4):
+        qzmin, qzmax, qumin, qumax, qvmin, qvmax = (
+            full(BIG), full(-BIG), full(BIG), full(-BIG), full(BIG), full(-BIG)
+        )
+        for uf, vf, zc in zplanes[q] + zplanes[q + 1]:
+            qzmin = torch.minimum(qzmin, zc)
+            qzmax = torch.maximum(qzmax, zc)
+            qumin = torch.minimum(qumin, uf)
+            qumax = torch.maximum(qumax, uf)
+            qvmin = torch.minimum(qvmin, vf)
+            qvmax = torch.maximum(qvmax, vf)
+        qclean = qzmin > 1e-6
+        q_out = (qzmax <= 1e-6) | (
+            qclean
+            & ((qumax < 0.0) | (qumin > w_img - 1.0) | (qvmax < 0.0) | (qvmin > h_img - 1.0))
+        )
+        quarters.append(
+            dict(inc=~q_out, clean=qclean, zmin=qzmin, zmax=qzmax,
+                 umin=qumin, umax=qumax, vmin=qvmin, vmax=qvmax)
+        )
+
+    any_included = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for qd in quarters:
+        any_included = any_included | qd["inc"]
+    out_frustum = ~any_included
+
+    dmin_t, dmax_t, val_t, offs, rows_t, cols_t = build_hiz(depth)
+    stacked = torch.stack([dmin_t, dmax_t, val_t], dim=0)
+    offs_t, rows_tt, cols_tt = host_tensor([offs, rows_t, cols_t], torch.int64, dev)
+
+    dvalid = depth > 0.0
+    any_valid = dvalid.any()
+    all_img_valid = dvalid.all()
+    dmin_global = torch.where(dvalid, depth, BIG).amin()
+
+    def fp_stats(umin_, umax_, vmin_, vmax_):
+        cumin = torch.clamp(umin_, 0.0, w_img - 1.0)
+        cumax = torch.clamp(umax_, 0.0, w_img - 1.0)
+        cvmin = torch.clamp(vmin_, 0.0, h_img - 1.0)
+        cvmax = torch.clamp(vmax_, 0.0, h_img - 1.0)
+        span = torch.maximum(cumax - cumin, cvmax - cvmin)
+        lvl = torch.clamp(
+            torch.ceil(torch.log2(torch.clamp(span, min=1.0) / 8.0)), 0, 4
+        ).to(torch.int64)
+        fit = span <= 8.0 * 16.0
+        cell = 8.0 * torch.exp2(lvl.to(f32))
+        cu = (cumin + cumax) * 0.5
+        cv = (cvmin + cvmax) * 0.5
+        nr = rows_tt[lvl]
+        nc = cols_tt[lvl]
+        rr = torch.minimum(torch.clamp((cv / cell).to(torch.int32).to(torch.int64), min=0), nr - 1)
+        cc = torch.minimum(torch.clamp((cu / cell).to(torch.int32).to(torch.int64), min=0), nc - 1)
+        flat = offs_t[lvl] + rr * nc + cc
+        got = stacked[:, flat]
+        return got[0], got[1], got[2] > 0.5, fit
+
+    all_free = any_included
+    all_behind = any_included
+    eff_any = torch.zeros((n,), dtype=torch.bool, device=dev)
+    umin, umax, vmin, vmax = full(BIG), full(-BIG), full(BIG), full(-BIG)
+    eff_clean = torch.ones((n,), dtype=torch.bool, device=dev)
+    for qi, qd in enumerate(quarters):
+        inc = qd["inc"]
+        fq_min, fq_max, fq_all, fq_fit = fp_stats(qd["umin"], qd["umax"], qd["vmin"], qd["vmax"])
+        tight = qd["clean"] & fq_fit
+        behind_q = tight & (qd["zmin"] - trunc > fq_max)
+        free_tight = (qd["zmax"] + trunc < fq_min) & (fq_max > 0.0) & fq_all
+        free_global = (qd["zmax"] + trunc < dmin_global) & all_img_valid & any_valid
+        free_q = torch.where(tight, free_tight, free_global)
+        all_free = all_free & (~inc | free_q)
+        all_behind = all_behind & (~inc | behind_q)
+        if sat_quarters is not None:
+            behind_q = behind_q | (free_q & sat_quarters[:, qi])
+        eff = inc & ~behind_q
+        eff_any = eff_any | eff
+        umin = torch.where(eff, torch.minimum(umin, qd["umin"]), umin)
+        umax = torch.where(eff, torch.maximum(umax, qd["umax"]), umax)
+        vmin = torch.where(eff, torch.minimum(vmin, qd["vmin"]), vmin)
+        vmax = torch.where(eff, torch.maximum(vmax, qd["vmax"]), vmax)
+        eff_clean = eff_clean & (~eff | qd["clean"])
+
+    skip = out_frustum | all_behind | ~eff_any
+    free = any_included & all_free
+    clean = eff_any & eff_clean
+    cls = torch.where(
+        free, CLS_FREE, torch.where(clean, CLS_BAND, CLS_REFINE)
+    ).to(torch.int32)
+
+    # Band window: level l fits iff span_v <= 22*2^l and span_u <= 60*2^l
+    # after aligning the origin down (rows to 8, cols to 64).
+    cumin = torch.clamp(umin, 0.0, w_img - 1.0)
+    cumax = torch.clamp(umax, 0.0, w_img - 1.0)
+    cvmin = torch.clamp(vmin, 0.0, h_img - 1.0)
+    cvmax = torch.clamp(vmax, 0.0, h_img - 1.0)
+    span_u = cumax - cumin
+    span_v = cvmax - cvmin
+    fits0 = (span_v <= 22.0) & (span_u <= 60.0)
+    fits1 = (span_v <= 44.0) & (span_u <= 120.0)
+    fits2 = (span_v <= 88.0) & (span_u <= 240.0)
+    level = torch.where(fits0, 0, torch.where(fits1, 1, torch.where(fits2, 2, 3)))
+    level = torch.where(clean, level, 3).to(torch.int32)
+    scale = torch.exp2(level.to(f32))
+
+    h_l = [_mip_h(intr.height), _mip_h(-(-intr.height // 2)), _mip_h(-(-intr.height // 4))]
+    w_l = [_mip_w(intr.width), _mip_w(-(-intr.width // 2)), _mip_w(-(-intr.width // 4))]
+    lvl_i = level.to(torch.int64)
+    hi = host_tensor([[h - WIN_V for h in h_l] + [0], [w - WIN_U for w in w_l] + [0]],
+                     torch.int32, dev)
+    v_hi, u_hi = hi[0][lvl_i], hi[1][lvl_i]
+    v0 = torch.minimum(torch.clamp(((cvmin / scale).to(torch.int32) - 1) & ~7, min=0), v_hi)
+    u0 = torch.minimum(torch.clamp(((cumin / scale).to(torch.int32) - 1) & ~63, min=0), u_hi)
+    v0 = torch.where(level == 3, 0, v0)
+    u0 = torch.where(level == 3, 0, u0)
+
+    desc = torch.stack(
+        [ci, cj, ck, cls, level, v0.to(torch.int32), u0.to(torch.int32), torch.zeros_like(ci)],
+        dim=1,
+    )
+    order = torch.sort(skip.to(torch.int32), stable=True).indices
+    count = (~skip).sum().to(torch.int32).reshape(1)
+    return WorkList(desc=desc[order].contiguous(), count=count)
+
+
+def _mip_h(h: int) -> int:
+    """Padded mip height (ops/tsdf_stream.build_depth_mips): +1 replicated
+    border row, 8-aligned, at least one window."""
+    return max(-(-(h + 1) // 8) * 8, WIN_V)
+
+
+def _mip_w(w: int) -> int:
+    return max(-(-(w + 1) // 128) * 128, WIN_U)
+
+
+def decode_worklist(wl: WorkList):
+    """Numpy (ci, cj, ck, cls, level, v0, u0) rows of the listed chunks."""
+    count = int(wl.count[0])
+    rows = np.asarray(wl.desc[:count, :7].cpu())
+    return [tuple(int(x) for x in r) for r in rows]

@@ -1,0 +1,166 @@
+"""Build, load and call the CUDA kernels of ``csrc/``.
+
+All kernels compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+into ONE shared library with a plain C interface, loaded with ctypes (no
+PyTorch headers, so a build takes seconds). The library is built at first
+use into ``build/housescan_kernels/`` at the repository root (git-ignored),
+named by a hash of the sources and flags, so a changed source rebuilds and
+concurrent processes never load a half-written file.
+
+``--fmad=false`` keeps every float32 multiply and add separately rounded,
+as on the CPU: the kernels then reproduce their plain PyTorch versions'
+arithmetic operation for operation, and the remaining differences come
+from summation order alone.
+
+``launch_counts`` counts, per kernel, the wrapper calls that launched it;
+``plain_counts`` the calls that ran the plain version instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "housescan_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+KERNELS = ("bilateral", "icp_level", "tsdf_stream", "raycast_tiles")
+
+launch_counts = {k: 0 for k in KERNELS}
+plain_counts = {k: 0 for k in KERNELS}
+# Filled by load(): build seconds (0 when the library was already built)
+# and the ptxas register/spill report.
+build_info = {"seconds": 0.0, "ptxas": "", "path": ""}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
+_SIGNATURES = {
+    # depth, out, h, w, radius, sigma_space, sigma_depth, stream
+    "hs_bilateral": [_P, _P, _I, _I, _I, _D, _D, _P],
+    # packed, hp, wp, params, pose0, state, partials, n_iters, stream
+    "hs_icp_level": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
+    # vol, planes, desc, count, n_desc, nx, ny, nz, mip0, h0, w0, mip1,
+    # h1, w1, mip2, h2, w2, l3, h3, w3, params, sat_w, stream
+    "hs_tsdf_stream": [
+        _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
+        _P, _F, _P,
+    ],
+    # cand, n_tiles, max_ct, params, out, h, w_pad, stream
+    "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
+}
+
+_lib = None
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        launch_counts[k] = 0
+        plain_counts[k] = 0
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")]
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def load():
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    so = BUILD_DIR / f"libhousescan_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.time()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            )
+        build_info["seconds"] = time.time() - t0
+        build_info["ptxas"] = res.stderr + res.stdout
+        os.replace(tmp, so)
+    build_info["path"] = str(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def require_cuda(name: str, *tensors, dtype=torch.float32) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
+    on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all inputs must be CUDA tensors on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def host_tensor(values, dtype, device) -> torch.Tensor:
+    """A small tensor of host values on ``device``. To a CUDA device it is
+    copied from pinned memory without blocking, so building it does not
+    wait for the work already queued on the stream."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def f32_vector(parts, device) -> torch.Tensor:
+    """One float32 vector on ``device`` from Python floats and float32
+    tensors (tensors stay on the device: no host synchronisation)."""
+    out, run = [], []
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            if run:
+                out.append(host_tensor(run, torch.float32, device))
+                run = []
+            out.append(p.reshape(-1).to(device=device, dtype=torch.float32))
+        else:
+            run.append(float(p))
+    if run:
+        out.append(host_tensor(run, torch.float32, device))
+    return torch.cat(out)

@@ -1,0 +1,152 @@
+"""The damped 6x6 solve + twist exponential + pose compose (plain version).
+
+Replaces the math of ``housescan_tpu/ops/solve6_pallas.py``
+(``_solve_twist_math``, the body of the K2 kernel). Only the math is on
+the fusion step's path: K3 inlines it as the CUDA device function
+``csrc/solve6.cuh``, which repeats the operations below one for one. The
+standalone K2 launch (the XLA ICP path and the sharded path) is not
+ported yet.
+
+Iterated-Tikhonov null-space filter x = (A + lam I)^-1 A (A + lam I)^-1 b
+with lam = max(damping, null_threshold) * max|diag A| (unrolled Cholesky,
+the second solve reuses the factor), a non-finite and >1e3 guard that
+keeps the pose, a max-step clamp, Rodrigues via Taylor-series sin/cos
+(exact in float32 for |theta| <= 0.3), then pose @ increment.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+
+def _sin_taylor(t):
+    t2 = t * t
+    return t * (
+        1.0 + t2 * (-1.0 / 6 + t2 * (1.0 / 120 + t2 * (-1.0 / 5040 + t2 / 362880)))
+    )
+
+
+def _cos_taylor(t):
+    t2 = t * t
+    return 1.0 + t2 * (
+        -0.5 + t2 * (1.0 / 24 + t2 * (-1.0 / 720 + t2 * (1.0 / 40320)))
+    )
+
+
+def solve_twist_math(
+    a_flat: List[torch.Tensor],
+    b_vec: List[torch.Tensor],
+    pose_flat: List[torch.Tensor],
+    damping,
+    max_step,
+    null_threshold: float = 1e-2,
+) -> List[torch.Tensor]:
+    """36 (row-major A), 6 (b) and 16 (pose) float32 tensors of one shape
+    -> 16 new pose entries + the post-clamp step norm (0 when the solve
+    failed and the pose was kept)."""
+
+    def a(i, j):
+        return a_flat[i * 6 + j]
+
+    where = torch.where
+    scale = a(0, 0)
+    for i in range(1, 6):
+        scale = torch.maximum(scale, a(i, i).abs())
+    scale = torch.clamp(scale, min=1e-12)
+    lam = torch.clamp(damping, min=null_threshold) * scale
+
+    L = [[None] * 6 for _ in range(6)]
+    ok = None
+    for i in range(6):
+        for j in range(i + 1):
+            s = a(i, j) + lam if i == j else a(i, j)
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                pos = s > 0.0
+                ok = pos if ok is None else (ok & pos)
+                L[i][j] = torch.sqrt(torch.clamp(s, min=1e-30))
+            else:
+                L[i][j] = s / L[j][j]
+
+    def chol_solve(rhs):
+        y = [None] * 6
+        for i in range(6):
+            s = rhs[i]
+            for k in range(i):
+                s = s - L[i][k] * y[k]
+            y[i] = s / L[i][i]
+        x = [None] * 6
+        for i in range(5, -1, -1):
+            s = y[i]
+            for k in range(i + 1, 6):
+                s = s - L[k][i] * x[k]
+            x[i] = s / L[i][i]
+        return x
+
+    z = chol_solve(b_vec)
+    az = [None] * 6
+    for i in range(6):
+        s = a(i, 0) * z[0]
+        for k in range(1, 6):
+            s = s + a(i, k) * z[k]
+        az[i] = s
+    x = chol_solve(az)
+
+    for i in range(6):
+        ok = ok & torch.isfinite(x[i])
+    x = [where(ok, xi, 0.0) for xi in x]
+
+    nrm2 = x[0] * x[0]
+    for i in range(1, 6):
+        nrm2 = nrm2 + x[i] * x[i]
+    nrm = torch.sqrt(torch.clamp(nrm2, min=1e-24))
+    ok = ok & (nrm <= 1e3)
+    x = [where(ok, xi, 0.0) for xi in x]
+    nrm = where(ok, nrm, 0.0)
+    fac = where(nrm > max_step, max_step / nrm, 1.0)
+    x = [xi * fac for xi in x]
+
+    wx, wy, wz, tx, ty, tz = x
+    theta = torch.sqrt(torch.clamp(wx * wx + wy * wy + wz * wz, min=0.0))
+    safe_t = torch.clamp(theta, min=1e-12)
+    small = theta <= 1e-12
+    kx = where(small, 0.0, wx / safe_t)
+    ky = where(small, 0.0, wy / safe_t)
+    kz = where(small, 0.0, wz / safe_t)
+    s = _sin_taylor(theta)
+    c = _cos_taylor(theta)
+    one_c = 1.0 - c
+
+    r00 = c + one_c * kx * kx
+    r01 = s * (-kz) + one_c * kx * ky
+    r02 = s * ky + one_c * kx * kz
+    r10 = s * kz + one_c * ky * kx
+    r11 = c + one_c * ky * ky
+    r12 = s * (-kx) + one_c * ky * kz
+    r20 = s * (-ky) + one_c * kz * kx
+    r21 = s * kx + one_c * kz * ky
+    r22 = c + one_c * kz * kz
+    zero = torch.zeros_like(r00)
+    one = torch.ones_like(r00)
+    inc = [
+        [r00, r10, r20, zero],
+        [r01, r11, r21, zero],
+        [r02, r12, r22, zero],
+        [tx, ty, tz, one],
+    ]
+
+    def p(i, j):
+        return pose_flat[i * 4 + j]
+
+    out = []
+    for i in range(4):
+        for j in range(4):
+            s_ = p(i, 0) * inc[0][j]
+            for k in range(1, 4):
+                s_ = s_ + p(i, k) * inc[k][j]
+            out.append(torch.where(ok, s_, p(i, j)))
+    out.append(where(ok, nrm * fac, 0.0))
+    return out

@@ -1,0 +1,173 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips
+where no CUDA device is present. Run them on the card with
+
+    python -m pytest -m gpu tests/test_torch_*.py
+
+Inputs come from the port's own synthetic module (no JAX). The library
+builds with --fmad=false, so kernel and plain version run the same
+float32 operations; they differ only in summation order. Bounds: K1
+2e-5; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
+reference's bounds for its fused level); K4 weights identical, packed
+tsdf within one step on >= 99.9% of voxels, plane valid flags on >= 99.9%
+of sub-blocks, fields 1e-5 (both sum the moments in float64), field 11
+identical; K6 valid masks on >= 99.5% of pixels, rows 1e-5 where both hit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from housescan_tpu_torch.kinfu import maps as mp
+from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_run
+from housescan_tpu_torch.kinfu.preprocess import bilateral_filter, build_pyramid
+from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
+from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+from housescan_tpu_torch.ops import cuda_lib
+from housescan_tpu_torch.ops.chunk_select import build_worklist
+from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
+from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda
+from housescan_tpu_torch.ops.raycast_tiles import (
+    _ray_params,
+    build_tile_candidates,
+    launch_raycast_kernel,
+    raycast_tiles_plain,
+)
+from housescan_tpu_torch.ops.tsdf_stream import (
+    FIELD_SAT,
+    _stream_params,
+    build_depth_mips,
+    integrate_plain,
+    launch_stream_kernel,
+    planes_shape,
+    tsdf_integrate_stream,
+)
+
+VGA = Intrinsics(640, 480, 525.0, 525.0, 319.5, 239.5)
+QQVGA = Intrinsics(160, 120, 131.25, 131.25, 79.5, 59.5)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m gpu tests/test_torch_*.py on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _stream(intr, n, yaw, device):
+    half, boxes = furnished_room()
+    poses = orbit_poses(n, radius=0.25, yaw_range=yaw, pitch=0.25)
+    return poses, render_depth_stream(intr, poses, half, boxes, device=device)
+
+
+@pytest.mark.gpu
+def test_bilateral_kernel_matches_plain(cuda):
+    _, frames = _stream(VGA, 1, 0.0, cuda)
+    d = frames[0].clone()
+    d[100:140, 200:260] = 0.0
+    got = bilateral_filter_cuda(d)
+    want = bilateral_filter(d)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+    assert bool((got[100:140, 200:260] == 0).all())
+
+
+@pytest.mark.gpu
+def test_icp_kernel_matches_plain(cuda):
+    """A 640x480 frame pair (2 px of motion, window 4): frame 0 as the
+    model."""
+    poses, frames = _stream(VGA, 2, 0.008, cuda)
+    p0 = torch.from_numpy(poses[0]).to(cuda)
+    live0 = build_pyramid(frames[0], VGA).maps[0]
+    rot, t = p0[:3, :3], p0[3, :3]
+    v_w = torch.einsum("chw,cd->dhw", live0[0:3], rot) + t[:, None, None]
+    n_w = torch.einsum("chw,cd->dhw", live0[3:6], rot)
+    valid = ((live0[3:6] ** 2).sum(0) > 0.25).to(torch.float32)
+    model = torch.cat([frames[0][None], v_w, n_w, valid[None]]) * valid
+    live1 = build_pyramid(frames[1], VGA).maps[0]
+    packed = mp.pack_icp_inputs(live1, model, mp.model_gradients(model), band_h=BAND_H)
+    args = dict(n_iters=10, window=4, dist_threshold=0.10, tight_threshold=0.0117)
+    before = cuda_lib.launch_counts["icp_level"]
+    kp, kr, kc = icp_level(packed, p0, p0, VGA, **args)
+    qp, qr, qc = icp_level_plain(packed, p0, p0, VGA, **args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["icp_level"] == before + 1
+    assert int(qc) > 10000
+    assert float((kp - qp).abs().max()) <= 5e-5
+    assert abs(float(kr) - float(qr)) < 1e-4
+    assert abs(int(kc) - int(qc)) <= max(5, int(qc) // 200)
+
+
+@pytest.fixture
+def fused(cuda):
+    """A 128^3 volume with one fused frame, and the next frame's inputs."""
+    poses, frames = _stream(QQVGA, 2, 0.3, cuda)
+    vol = tsdf_new(128, 3.0, 0.06, device=cuda)
+    planes = torch.zeros(planes_shape(128), device=cuda)
+    pose0 = torch.from_numpy(poses[0]).to(cuda)
+    vol, planes = tsdf_integrate_stream(vol, planes, frames[0], pose0, QQVGA)
+    return vol, planes, frames[1], torch.from_numpy(poses[1]).to(cuda)
+
+
+@pytest.mark.gpu
+def test_stream_kernel_matches_plain(fused):
+    vol, planes, d, p = fused
+    sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+    wl = build_worklist(d, p, QQVGA, 128, vol.voxel_size, vol.origin, vol.trunc, sat_quarters=sat)
+    mips = build_depth_mips(d)
+    params = _stream_params(vol, p, QQVGA, 128.0, 16, 1)
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_stream_kernel(kd, kp, wl.desc, wl.count, mips, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    integrate_plain(qd, qp, wl.desc, wl.count, mips, params, 16, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(kd & 0xFFFF, qd & 0xFFFF)
+    assert int((kd & 0xFFFF).max()) == 2
+    assert float((((kd >> 16) - (qd >> 16)).abs() <= 1).float().mean()) >= 0.999
+    kv, qv = kp[:, :, :, 4] > 0.5, qp[:, :, :, 4] > 0.5
+    assert int(qv.sum()) > 30
+    assert float((kv == qv).float().mean()) >= 0.999
+    both = (kv & qv)[:, :, :, None, :].expand_as(kp)
+    assert float((kp - qp)[both].abs().max()) <= 1e-5
+    assert torch.equal(kp[:, :, :, FIELD_SAT], qp[:, :, :, FIELD_SAT])
+
+
+@pytest.mark.gpu
+def test_raycast_kernel_matches_plain(fused):
+    vol, planes, _, p = fused
+    cand = build_tile_candidates(planes, p, QQVGA, vol)
+    params = _ray_params(p, QQVGA, 0.3, 2)
+    k = launch_raycast_kernel(cand, params, 120, 256)
+    q = raycast_tiles_plain(cand, params, 120, 256)
+    torch.cuda.synchronize()
+    kv, qv = k[0] > 0, q[0] > 0
+    assert int(qv.sum()) > 5000
+    assert float((kv == qv).float().mean()) >= 0.995
+    assert float((k[:7] - q[:7])[:, kv & qv].abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_step_runs_through_every_kernel(cuda):
+    """Three fused frames on the card: every kernel launched, no plain
+    version ran, and the poses match the CPU run of the same stream
+    (same operations, other summation order) to 1e-3."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
+    cuda_lib.reset_counts()
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device=cuda)
+    st, traj = kinfu_run(st, frames[:3], QQVGA)
+    torch.cuda.synchronize()
+    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNELS)
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
+    cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0])
+    cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA)
+    np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
+    assert np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[2][3, :3]) < 0.02

@@ -1,0 +1,192 @@
+"""Parity of the port's work-list TSDF integrate (K4) with the reference.
+
+Two frames of the furnished-room orbit go through the reference's
+``tsdf_integrate_stream`` (Pallas in interpret mode, ``free_split=False``,
+the configuration the port implements) and through the port's plain
+path, from the same fresh 128^3 packed volume. Tolerances:
+
+  * weights: identical (integer counts; the port reproduces the
+    reference's update predicates operation for operation);
+  * packed tsdf: within one quantization step (1/32767) on >= 99.9% of
+    observed voxels. The port computes the bilinear depth in plain
+    float32 where the reference splits it into bf16 hi/lo parts, a
+    last-bit difference that can move a rounding to the next step;
+  * planes of listed chunks: valid flags agree on >= 99.9% of
+    sub-blocks, fields within 1e-5 where both are valid (the reference's
+    own plane-refresh bound), field 11 (saturation/negative flags)
+    identical. Fields 0-3 (normal, offset) and 12 (lambda_min) get 1e-4:
+    the reference sums the crossing moments in float32 and forms the
+    covariance as E[p^2] - E[p]^2 with |p| <= 8 voxels, so each entry
+    carries rounding of ulp(64) = 7.6e-6 voxel^2; lambda_min inherits it
+    directly and the normal's off-axis components divided by the
+    eigen-gap, which the validity gate keeps >= 0.1 (<= 7.6e-5; the port
+    sums in float64, measured max 1.7e-5);
+  * unlisted chunks: volume data and planes bit-identical.
+"""
+
+import pytest
+
+pytest.importorskip("jax")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from housescan_tpu.kinfu.camera import Intrinsics as JIntrinsics
+from housescan_tpu.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
+from housescan_tpu.kinfu.tsdf import tsdf_new as j_tsdf_new
+from housescan_tpu.ops.chunk_select import build_worklist as j_build_worklist
+from housescan_tpu.ops.chunk_select import decode_worklist as j_decode_worklist
+from housescan_tpu.ops.tsdf_stream import tsdf_integrate_stream as j_integrate
+from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_worklist
+from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, planes_shape, tsdf_integrate_stream
+
+JINTR = JIntrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
+INTR = Intrinsics(*JINTR)
+RES = 128
+TRUNC = 0.06
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _scene():
+    half, boxes = furnished_room()
+    poses = orbit_poses(2, radius=0.25, yaw_range=0.3, pitch=0.25)
+    frames = render_depth_stream(JINTR, poses, half, boxes=boxes)
+    return np.asarray(frames), np.asarray(poses)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both packages over two frames, with each frame's work list."""
+    torch.set_num_threads(1)
+    frames, poses = _scene()
+    jv = j_tsdf_new(RES, 3.0, TRUNC, dtype=jnp.int32)
+    jp = jnp.zeros(planes_shape(RES), jnp.float32)
+    tv = tsdf_new(RES, 3.0, TRUNC)
+    tp = torch.zeros(planes_shape(RES))
+    j_lists, t_lists = [], []
+    for i in range(2):
+        d, p = frames[i], poses[i]
+        sat = np.asarray(jp)[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+        j_lists.append(sorted(j_decode_worklist(j_build_worklist(
+            jnp.asarray(d), jnp.asarray(p), JINTR, RES, jv.voxel_size, jv.origin,
+            jv.trunc, sat_quarters=jnp.asarray(sat)))))
+        jv, jp = j_integrate(
+            jax.tree_util.tree_map(jnp.copy, jv), jnp.copy(jp), jnp.asarray(d),
+            jnp.asarray(p), JINTR, interpret=True, free_split=False,
+        )
+        tsat = tp[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+        t_lists.append(sorted(decode_worklist(build_worklist(
+            torch.from_numpy(d), torch.from_numpy(p), INTR, RES, tv.voxel_size,
+            tv.origin, tv.trunc, sat_quarters=tsat))))
+        tv, tp = tsdf_integrate_stream(tv, tp, torch.from_numpy(d), torch.from_numpy(p), INTR)
+    return dict(
+        j_data=np.asarray(jv.data), j_planes=np.asarray(jp),
+        t_data=tv.data.numpy(), t_planes=tp.numpy(),
+        j_lists=j_lists, t_lists=t_lists,
+    )
+
+
+def _weights(data):
+    return data & 0xFFFF
+
+
+def _tsdf_q(data):
+    return data >> 16
+
+
+def test_worklist_matches_reference(runs):
+    """Same listed chunks with the same (class, level, window) per frame."""
+    for jl, tl in zip(runs["j_lists"], runs["t_lists"]):
+        assert len(tl) > 20
+        assert jl == tl
+
+
+def test_weights_identical(runs):
+    np.testing.assert_array_equal(_weights(runs["t_data"]), _weights(runs["j_data"]))
+    assert _weights(runs["t_data"]).max() == 2
+
+
+def test_packed_tsdf_within_one_step(runs):
+    obs = _weights(runs["j_data"]) > 0
+    dq = np.abs(_tsdf_q(runs["t_data"]).astype(np.int64) - _tsdf_q(runs["j_data"]))[obs]
+    assert obs.sum() > 10000
+    assert (dq <= 1).mean() >= 0.999, np.bincount(dq)[:4]
+
+
+def test_planes_agree(runs):
+    jp, tp = runs["j_planes"], runs["t_planes"]
+    jv, tv = jp[:, :, :, 4, :] > 0.5, tp[:, :, :, 4, :] > 0.5
+    assert jv.sum() > 30
+    assert (jv == tv).mean() >= 0.999
+    both = jv & tv
+    for f in range(16):
+        if f == FIELD_SAT:
+            continue
+        atol = 1e-4 if f in (0, 1, 2, 3, 12) else 1e-5
+        np.testing.assert_allclose(tp[:, :, :, f, :][both], jp[:, :, :, f, :][both], atol=atol)
+
+
+def test_saturation_field_identical(runs):
+    np.testing.assert_array_equal(
+        runs["t_planes"][:, :, :, FIELD_SAT, :], runs["j_planes"][:, :, :, FIELD_SAT, :]
+    )
+
+
+def test_unlisted_chunks_bit_identical():
+    """Chunks off the work list keep volume data and planes bit for bit
+    (256^3: chunks there are short enough in z that some are skipped)."""
+    res = 256
+    frames, poses = _scene()
+    rng = np.random.default_rng(1)
+    data0 = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (res,) * 3, dtype=np.int64).astype(np.int32))
+    planes0 = torch.from_numpy(rng.normal(size=planes_shape(res)).astype(np.float32))
+    vol = tsdf_new(res, 3.0, TRUNC)._replace(data=data0.clone())
+    planes = planes0.clone()
+    d, p = torch.from_numpy(frames[0]), torch.from_numpy(poses[0])
+    sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+    wl = build_worklist(d, p, INTR, res, vol.voxel_size, vol.origin, vol.trunc, sat_quarters=sat)
+    listed = np.zeros(planes_shape(res)[:3], bool)
+    for ci, cj, ck, *_ in decode_worklist(wl):
+        listed[ci, cj, ck] = True
+    assert 0 < listed.sum() < listed.size
+    tsdf_integrate_stream(vol, planes, d, p, INTR)
+    nb, nz = res // 8, res // 128
+
+    def chunks(a):
+        return a.numpy().reshape(nb, 8, nb, 8, nz, 128).transpose(0, 2, 4, 1, 3, 5)
+
+    np.testing.assert_array_equal(chunks(vol.data)[~listed], chunks(data0)[~listed])
+    np.testing.assert_array_equal(planes.numpy()[~listed], planes0.numpy()[~listed])
+    assert (chunks(vol.data)[listed] != chunks(data0)[listed]).any()
+
+
+def test_rejects_untileable_volume():
+    vol = tsdf_new(96, 3.0, TRUNC)
+    with pytest.raises(ValueError):
+        tsdf_integrate_stream(vol, torch.zeros(12, 12, 0, 16, 16), torch.zeros(120, 160),
+                              torch.eye(4), INTR)
+
+
+@pytest.mark.parametrize("res", [256, 512])
+def test_worklist_matches_reference_at_resolution(res):
+    """At 256^3 and 512^3 the reference pairs z-adjacent chunks into
+    superchunk entries; the port's single-chunk list must hold exactly the
+    reference's non-NOOP chunks with the same descriptors."""
+    frames, poses = _scene()
+    d, p = frames[1], poses[1]
+    jv = j_tsdf_new(res, 3.0, TRUNC, dtype=jnp.int32)
+    want = sorted(j_decode_worklist(j_build_worklist(
+        jnp.asarray(d), jnp.asarray(p), JINTR, res, jv.voxel_size, jv.origin, jv.trunc)))
+    tv = tsdf_new(res, 3.0, TRUNC)
+    got = sorted(decode_worklist(build_worklist(
+        torch.from_numpy(d), torch.from_numpy(p), INTR, res, tv.voxel_size, tv.origin, tv.trunc)))
+    assert len(got) > 100
+    assert got == want
