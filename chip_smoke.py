@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's fusion step on one NVIDIA GPU and check it.
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU and check it.
 
 Run from the repository root with one CUDA device visible:
 
@@ -8,32 +8,50 @@ Run from the repository root with one CUDA device visible:
 It uses ``housescan_tpu_torch`` only (no JAX) and runs the workload of the
 reference bench: the synthetic furnished room, a 21-pose orbit
 (``orbit_poses(21, radius=0.25, yaw_range=0.4, pitch=0.25)``), a 512^3
-int16-packed volume and 640x480 depth. Phases, each fatal on failure:
+int16-packed volume over 3 m and 640x480 depth. Phases, each fatal on
+failure:
 
   1. a CUDA device must be present;
   2. print the card's name and power limit (nvidia-smi);
-  3. build the kernel library from ``housescan_tpu_torch/csrc`` and print
-     the build time and the ptxas register/spill lines;
-  4. run the orbit once (warm), then compare each kernel (K1 bilateral,
-     K3 ICP level, K4 stream integrate, K6 plane raycast) with its plain
-     PyTorch version on the card at the shapes that state gives them;
-  5. run the orbit again from a fresh state, timed on the host clock
-     (frames 1..20 after frame 0, ending in a synchronize), and gate the
-     final pose error at the reference bench's 5 mm budget;
-  6. require every kernel's launch count from that run to be > 0 and no
-     plain version to have run in it;
-  7. time each kernel and its plain version with CUDA events;
-  8. profile three steps: device kernel time per step against the timed
-     pass's frame time (the device's busy share), the top kernels, and the
-     full table in ``build/chip_smoke/profile.txt``.
+  3. build the kernel library from ``housescan_tpu_torch/csrc`` (one nvcc
+     per source, in parallel) and print the build time and the ptxas
+     register/spill lines;
+  4. run the fusion orbit once (warm), then compare each kernel (K1
+     bilateral, K3 ICP level, K4 stream integrate, K5 free carve, K6 plane
+     raycast) with its plain PyTorch version on the card at the shapes the
+     main path gives it; K5 on a free list of at least 16 superblocks
+     (the state after frame 20, else after frame 0);
+  5. integrate the orbit at its poses with and without the free split:
+     the volumes and planes must be bit-identical;
+  6. run the fusion orbit again from a fresh state, timed on the host
+     clock (frames 1..20 after frame 0, ending in a synchronize), gate the
+     final pose error at the reference bench's 5 mm budget, and require
+     every kernel to have launched in it and no plain version to have run;
+  7. the scan at full width: record the 21 frames, load them, and run
+     ``scan_to_room_dir(config=Config(), write_mesh=True)`` into
+     ``build/chip_smoke/scan_room``; the kernel launch counts of this run
+     must show every kernel and no plain version; gate on no dropped
+     frame, every reference-layout file present and parsing, >= 2 planes
+     and a non-empty mesh inside the volume; print the pose error and the
+     host time of each phase (fusion, surface points, RANSAC, marching
+     tetrahedra, writes), then RANSAC once more on the same cloud, split
+     into the detection on the card and the host's hulls;
+  8. time each kernel and its plain version with CUDA events, beside its
+     bound: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) for this run's
+     inputs (H100 SXM data sheet; each input byte read once, each output
+     byte written once);
+  9. profile three fusion steps: device kernel time per step against the
+     timed pass's frame time (the device's busy share), the top kernels,
+     and the full table in ``build/chip_smoke/profile.txt``.
 
 Numbers are printed beside the card's name and power limit. The line
-before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+before the last is the kernels' JSON record (launches: the scan's run);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -44,12 +62,18 @@ import torch
 RES = 512
 N_FRAMES = 20
 POSE_BUDGET_MM = 0.15 * N_FRAMES + 2.0  # bench.py's gate, 5 mm at 20 frames
+OUT = "build/chip_smoke"
 KERNELS = {
     "bilateral": ("housescan_tpu_torch/csrc/bilateral.cu", "housescan_tpu/ops/preprocess_pallas.py:26"),
     "icp_level": ("housescan_tpu_torch/csrc/icp.cu", "housescan_tpu/ops/icp_pallas.py:51"),
     "tsdf_stream": ("housescan_tpu_torch/csrc/tsdf_stream.cu", "housescan_tpu/ops/tsdf_stream.py:105"),
+    "tsdf_free": ("housescan_tpu_torch/csrc/tsdf_free.cu", "housescan_tpu/ops/tsdf_stream.py:814"),
     "raycast_tiles": ("housescan_tpu_torch/csrc/raycast_tiles.cu", "housescan_tpu/ops/raycast_tiles.py:337"),
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+CHUNK_BYTES = 8 * 8 * 128 * 4  # one (8, 8, 128) chunk of packed int32 voxels
+TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
 
 
 def fail(msg: str) -> None:
@@ -77,6 +101,13 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound ms, what bounds it): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def workload(device):
@@ -108,33 +139,54 @@ def run_orbit(intr, poses, frames, res, device):
     return st, seconds, [bool(t) for t in tracked]
 
 
-def compare_kernels(st, intr, depth, res):
+def free_inputs(vol, planes, depth, pose, intr):
+    """The free work list, the K4 main list and the kernel parameters of
+    one integrate, and the number of listed superblocks and members."""
+    from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_free_worklist
+    from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, N_QUARTERS, _stream_params
+
+    sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+    neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+    wl, fwl = build_worklist(depth, pose, intr, vol.dims, vol.voxel_size, vol.origin, vol.trunc,
+                             sat_quarters=sat, neg_flags=neg, free_split=True)
+    params = _stream_params(vol, pose, intr, 128.0, vol.dims[0] // 8, vol.dims[2] // 128)
+    entries, members = decode_free_worklist(fwl)
+    n_sb = sum(1 for e in entries if e[0])
+    return wl, fwl, params, n_sb, len(members)
+
+
+def compare_kernels(st, st0, intr, depth, depth1, pose1, res):
     """Each kernel against its plain version at the main path's shapes,
-    from the state after the warm orbit. Returns per-kernel max abs error
-    and the callables the timing phase reuses."""
+    from the state after the warm orbit (K5: that state, else the state
+    after frame 0 with frame 1). Returns per-kernel max abs error, the
+    callables the timing phase reuses and each kernel's bound inputs."""
     from housescan_tpu_torch.kinfu import maps as mp
     from housescan_tpu_torch.kinfu.preprocess import build_pyramid
-    from housescan_tpu_torch.ops.chunk_select import build_worklist
     from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
     from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda, bilateral_filter_plain
     from housescan_tpu_torch.ops.raycast_tiles import (
         _ray_params, build_tile_candidates, launch_raycast_kernel, raycast_tiles_plain,
     )
     from housescan_tpu_torch.ops.tsdf_stream import (
-        FIELD_SAT, _stream_params, build_depth_mips, integrate_plain, launch_stream_kernel,
+        FIELD_SAT, build_depth_mips, free_carve_plain, integrate_plain, launch_free_kernel,
+        launch_stream_kernel,
     )
 
-    errs, calls = {}, {}
+    errs, calls, bounds = {}, {}, {}
+    h, w = intr.height, intr.width
 
-    # K1
+    # K1: 9 float ops per tap (49 taps at radius 3), one read and one write a pixel
     k = bilateral_filter_cuda(depth)
     q = bilateral_filter_plain(depth)
     errs["bilateral"] = float((k - q).abs().max())
     if errs["bilateral"] > 2e-5:
         fail(f"K1 bilateral differs from its plain version by {errs['bilateral']}")
     calls["bilateral"] = (lambda: bilateral_filter_cuda(depth), lambda: bilateral_filter_plain(depth))
+    bounds["bilateral"] = bound(2 * h * w * 4, 9 * 49 * h * w)
 
-    # K3 at the finest level, with the step's level-0 arguments
+    # K3 at the finest level, with the step's level-0 arguments: the packed
+    # maps read once; ~120 float ops a pixel and iteration (association,
+    # residual, Jacobian, the 27 normal-equation sums)
     pyr = build_pyramid(depth, intr)
     packed = mp.pack_icp_inputs(pyr.maps[0], st.model_maps, mp.model_gradients(st.model_maps), band_h=BAND_H)
     tight = torch.clamp(0.5 * st.volume.voxel_size, min=0.006)
@@ -152,13 +204,14 @@ def compare_kernels(st, intr, depth, res):
         lambda: icp_level(packed, st.model_pose, st.model_pose, intr, **args),
         lambda: icp_level_plain(packed, st.model_pose, st.model_pose, intr, **args),
     )
+    bounds["icp_level"] = bound(packed.numel() * 4, 120 * 10 * packed.shape[1] * packed.shape[2])
 
-    # K4 on copies of the volume, the same work list for both
+    # K4 on copies of the volume, on the main list left by the split: each
+    # listed chunk read and written once plus its planes tile, the mips
+    # read once; ~60 float ops a voxel
     vol, planes, pose = st.volume, st.planes, st.pose
-    sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
-    wl = build_worklist(depth, pose, intr, vol.dims, vol.voxel_size, vol.origin, vol.trunc, sat_quarters=sat)
+    wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth, pose, intr)
     mips = build_depth_mips(depth)
-    params = _stream_params(vol, pose, intr, 128.0, res // 8, res // 128)
     kd, kpl = vol.data.clone(), planes.clone()
     launch_stream_kernel(kd, kpl, wl.desc, wl.count, mips, params)
     qd, qpl = vol.data.clone(), planes.clone()
@@ -178,18 +231,55 @@ def compare_kernels(st, intr, depth, res):
     fdiff = float((kpl - qpl)[both].abs().max()) if bool(both.any()) else 0.0
     if fdiff > 1e-5 or not torch.equal(kpl[:, :, :, FIELD_SAT], qpl[:, :, :, FIELD_SAT]):
         fail(f"K4 plane fields differ by {fdiff}")
-    print(f"# K4 compare: {n_listed} listed chunks, plane field max diff {fdiff}", flush=True)
+    print(f"# K4 compare: {n_listed} listed chunks (main list after the split), "
+          f"plane field max diff {fdiff}", flush=True)
     scratch = vol.data.clone(), planes.clone()
     calls["tsdf_stream"] = (
         lambda: launch_stream_kernel(scratch[0], scratch[1], wl.desc, wl.count, mips, params),
         lambda: integrate_plain(scratch[0], scratch[1], wl.desc, wl.count, mips, params,
                                 res // 8, res // 128),
     )
+    mip_bytes = sum(m.numel() for m in mips) * 4
+    bounds["tsdf_stream"] = bound(n_listed * (2 * CHUNK_BYTES + TILE_BYTES) + mip_bytes,
+                                  60 * 8192 * n_listed)
+    del kd, qd, kpl, qpl
 
-    # K6 on the state's planes at its pose
-    cand = build_tile_candidates(planes, pose, intr, vol)
+    # K5 on copies, on a free list of >= 16 superblocks: each member chunk
+    # read and written once plus its planes tile; ~30 float ops a voxel
+    src = "after frame 20"
+    if n_sb < 16:
+        vol, planes, pose = st0.volume, st0.planes, pose1
+        wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth1, pose, intr)
+        src = "after frame 0, frame 1"
+    if n_sb == 0:
+        fail("K5 comparison: the free work list is empty")
+    kd, kpl = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kpl, fwl, params)
+    qd, qpl = vol.data.clone(), planes.clone()
+    free_carve_plain(qd, qpl, fwl, params)
+    torch.cuda.synchronize()
+    changed = int((kd != vol.data).sum())
+    if not torch.equal(kd, qd) or not torch.equal(kpl, qpl):
+        fail("K5 free carve differs from its plain version")
+    errs["tsdf_free"] = 0.0
+    print(f"# K5 compare ({src}): {n_sb} listed superblocks, {n_members} member chunks, "
+          f"{changed} voxels carved, bit-identical", flush=True)
+    if n_sb < 16:
+        print(f"# K5 compare: only {n_sb} superblocks listed (fewer than 16)", flush=True)
+    scratch5 = vol.data.clone(), planes.clone()
+    calls["tsdf_free"] = (
+        lambda: launch_free_kernel(scratch5[0], scratch5[1], fwl, params),
+        lambda: free_carve_plain(scratch5[0], scratch5[1], fwl, params),
+    )
+    bounds["tsdf_free"] = bound(n_members * (2 * CHUNK_BYTES + TILE_BYTES), 30 * 8192 * n_members)
+    del kd, qd, kpl, qpl
+
+    # K6 on the state's planes at its pose: the candidates read once and
+    # the 9 output rows written once; ~17 float ops per pixel and usable
+    # candidate of its tile
+    cand = build_tile_candidates(st.planes, st.pose, intr, st.volume)
     n_ut = -(-intr.width // 128)
-    rparams = _ray_params(pose, intr, 0.3, n_ut)
+    rparams = _ray_params(st.pose, intr, 0.3, n_ut)
     kr6 = launch_raycast_kernel(cand, rparams, intr.height, n_ut * 128)
     qr6 = raycast_tiles_plain(cand, rparams, intr.height, n_ut * 128)
     kval, qval = kr6[0] > 0, qr6[0] > 0
@@ -202,7 +292,109 @@ def compare_kernels(st, intr, depth, res):
         lambda: launch_raycast_kernel(cand, rparams, intr.height, n_ut * 128),
         lambda: raycast_tiles_plain(cand, rparams, intr.height, n_ut * 128),
     )
-    return errs, calls
+    n_cand = int((cand[:, :, 9] > 0.5).sum())
+    bounds["raycast_tiles"] = bound(cand.numel() * 4 + kr6.numel() * 4, 17 * 1024 * n_cand)
+    return errs, calls, bounds, dict(n_listed=n_listed, n_sb=n_sb, n_members=n_members)
+
+
+def split_orbit_identical(intr, poses, frames, device):
+    """The orbit's frames integrated at its poses with and without the
+    free split: final volumes and planes must be bit-identical."""
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+
+    out = []
+    for split in (True, False):
+        vol = tsdf_new(RES, 3.0, 0.03, device=device)
+        planes = torch.zeros(planes_shape(RES), device=device)
+        for d, p in zip(frames, poses):
+            tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(device), intr,
+                                  free_split=split)
+        out.append((vol.data, planes))
+    torch.cuda.synchronize()
+    same = torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    observed = int(((out[0][0] & 0xFFFF) > 0).sum())
+    return same, observed
+
+
+def run_scan(intr, poses, frames, card):
+    """scan_to_room_dir at the reference's default Config() over the
+    recorded orbit; every gate of phase 7."""
+    from housescan_tpu_torch.capture.replay import load_stream, record_stream
+    from housescan_tpu_torch.config import Config
+    from housescan_tpu_torch.io.pcd import load_pcd
+    from housescan_tpu_torch.io.planes_txt import load_planes_txt
+    from housescan_tpu_torch.io.ply import load_ply
+    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+    from housescan_tpu_torch.ops import cuda_lib
+
+    room = os.path.join(OUT, "scan_room")
+    shutil.rmtree(room, ignore_errors=True)
+    path = record_stream(os.path.join(OUT, "orbit_stream.npz"), frames, intr, poses=poses)
+    stream = load_stream(path)
+    cfg = Config()
+    timings = {}
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True,
+                     timings=timings)
+    total = time.perf_counter() - t0
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    print(f"# scan launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    if any(launches[k] <= 0 for k in KERNELS) or any(plain[k] for k in KERNELS):
+        fail("the scan did not go through every kernel")
+
+    traj = np.load(os.path.join(room, "trajectory.npz"))["poses"]
+    if traj.shape != (N_FRAMES + 1, 4, 4) or not np.isfinite(traj).all():
+        fail(f"trajectory.npz malformed: {traj.shape}")
+    # a dropped frame keeps the previous pose bit for bit
+    dropped = int(sum(np.array_equal(traj[i], traj[i - 1]) for i in range(1, len(traj))))
+    if dropped:
+        fail(f"the scan dropped {dropped} frame(s)")
+    err_mm = float(np.linalg.norm(traj[-1, 3, :3] - poses[N_FRAMES][3, :3])) * 1000.0
+    full = load_pcd(os.path.join(room, "cloud_bin.pcd"))
+    down = load_pcd(os.path.join(room, "cloud_downsampled.pcd"))
+    planes = load_planes_txt(os.path.join(room, "planes.txt"))
+    n_planes = planes.normal.shape[0]
+    if n_planes < 2:
+        fail(f"the scan found {n_planes} plane(s)")
+    for k in range(n_planes):
+        if len(load_pcd(os.path.join(room, f"cloud_plane_hull{k}.pcd"))) < 3:
+            fail(f"hull {k} has fewer than 3 points")
+    if len(full) < 10000 or len(down) != min(len(full), 1 << 16):
+        fail(f"surface clouds malformed: {len(full)} / {len(down)} points")
+    mesh = load_ply(os.path.join(room, "mesh.ply"))
+    v = mesh.vertices
+    if len(mesh.faces) == 0 or not np.isfinite(v).all() or (np.abs(v) >= 1.5).any():
+        fail("mesh.ply empty or outside the volume")
+    print(f"# scan {RES}^3 {intr.width}x{intr.height} Config(): {N_FRAMES + 1} frames, 0 dropped, "
+          f"pose error {err_mm:.3f} mm (scalar 0.10 m ICP gate), {len(full)} surface points, "
+          f"{n_planes} planes, {len(mesh.faces)} triangles [{card}]", flush=True)
+    phases = " ".join(f"{k} {timings[k]:.4f} s" for k in
+                      ("fusion", "surface_points", "ransac", "mesh", "writes"))
+    print(f"# scan phases (host clock, each ending in a synchronize): {phases}; "
+          f"total {total:.4f} s; fusion {timings['fusion'] / (N_FRAMES + 1) * 1000:.3f} ms/frame "
+          f"[{card}]", flush=True)
+
+    # the RANSAC phase again on the same cloud, split into the detection
+    # on the card (now warm) and the host's hulls
+    from housescan_tpu_torch.kinfu.ransac import detect_planes, plane_hulls
+
+    rc = cfg.ransac
+    cloud = torch.from_numpy(down.points).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = detect_planes(cloud, max_planes=rc.max_planes, n_hypotheses=rc.n_hypotheses,
+                        inlier_threshold=rc.inlier_threshold,
+                        min_inliers=max(int(rc.min_inlier_fraction * len(down)), 50))
+    n_det = int(det.n_planes)
+    t_det = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plane_hulls(down.points, det)
+    t_hull = time.perf_counter() - t0
+    print(f"# ransac again: detect_planes {t_det:.4f} s ({n_det} planes, warm), "
+          f"plane_hulls {t_hull:.4f} s (host) [{card}]", flush=True)
+    return launches
 
 
 def profile_steps(intr, poses, frames, res, device, out_path, n=3):
@@ -239,8 +431,10 @@ def main() -> None:
     device = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
+    os.makedirs(OUT, exist_ok=True)
 
     from housescan_tpu_torch.geometry.transform import full_fp32_matmul
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
     full_fp32_matmul()
@@ -255,11 +449,21 @@ def main() -> None:
 
     # 4. warm orbit, then each kernel against its plain version
     st, warm_s, _ = run_orbit(intr, poses, frames, RES, device)
-    errs, calls = compare_kernels(st, intr, frames[N_FRAMES], RES)
+    st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0], device=device)
+    st0 = kinfu_step(st0, frames[0], intr)
+    pose1 = torch.from_numpy(poses[1]).to(device)
+    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1, RES)
     print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
-    del st
+    del st, st0
 
-    # 5-6. the timed main-path run, with launch counts
+    # 5. split and unsplit integrates of the orbit
+    same, observed = split_orbit_identical(intr, poses, frames, device)
+    if not same:
+        fail("the orbit integrated with the free split differs from the unsplit one")
+    print(f"# split vs unsplit orbit (21 integrates at the true poses): bit-identical, "
+          f"{observed} observed voxels", flush=True)
+
+    # 6. the timed main-path run, with launch counts
     cuda_lib.reset_counts()
     st, secs, tracked = run_orbit(intr, poses, frames, RES, device)
     launches = dict(cuda_lib.launch_counts)
@@ -282,21 +486,34 @@ def main() -> None:
         fail(f"model maps cover only {float(maps[7].mean()):.3f} of the image")
     if any(launches[k] <= 0 for k in KERNELS) or any(plain[k] for k in KERNELS):
         fail("the main path did not go through every kernel")
+    del st
+    torch.cuda.empty_cache()
 
-    # 7. kernel vs plain times, CUDA events
-    reps = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1), "raycast_tiles": (50, 2)}
+    # 7. the scan at full width
+    scan_launches = run_scan(intr, poses, frames, card)
+    torch.cuda.empty_cache()
+
+    # 8. kernel vs plain times, CUDA events
+    reps = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
+            "tsdf_free": (20, 1), "raycast_tiles": (50, 2)}
+    steps = N_FRAMES + 1
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k_fn, q_fn = calls[name]
         ms = cuda_ms(k_fn, reps[name][0])
         plain_ms = cuda_ms(q_fn, reps[name][1])
-        print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
+        bound_ms, bound_by = bounds[name]
+        print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {launches[name] / steps:.2f} launches/step [{card}]", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms})
+                     "launches": scan_launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    print(f"# sizes: K4 {sizes['n_listed']} listed chunks, K5 {sizes['n_sb']} superblocks / "
+          f"{sizes['n_members']} member chunks", flush=True)
 
-    # 8. where the device time goes
-    dev_ms, n_launch, top = profile_steps(intr, poses, frames, RES, device, "build/chip_smoke/profile.txt")
+    # 9. where the device time goes
+    dev_ms, n_launch, top = profile_steps(intr, poses, frames, RES, device, os.path.join(OUT, "profile.txt"))
     frame_ms = secs / N_FRAMES * 1000.0
     print(f"# profile: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} launches/step; "
           f"timed pass {frame_ms:.3f} ms/frame -> device busy {dev_ms / frame_ms * 100:.1f}% [{card}]",

@@ -1,5 +1,6 @@
-"""housescan_tpu_torch: the KinFu fusion step in PyTorch with hand-written
-Hopper (sm_90a) CUDA kernels.
+"""housescan_tpu_torch: the KinFu fusion step and the scan path (depth
+stream to room directory) in PyTorch with hand-written Hopper (sm_90a)
+CUDA kernels.
 
 A port of ``housescan_tpu`` (JAX/Pallas). The layout mirrors it module for
 module (``geometry/``, ``kinfu/``, ``ops/``) and keeps its data layouts at

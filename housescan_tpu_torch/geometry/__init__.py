@@ -1,1 +1,2 @@
-"""Rigid-transform helpers (row-vector convention)."""
+"""Geometry: rigid transforms (row-vector convention), planes and the
+weighted plane fit."""

@@ -7,8 +7,13 @@ masking, which gives the next frame's model maps. The step runs entirely
 on the state's device and never waits on it from the host.
 
 The step requires a cubic packed int32 volume that tiles into
-(8, 8, 128) chunks. The reference's XLA fallback path (dense integrate
-and the TSDF ray marcher) and ``forced_pose`` are not ported yet.
+(8, 8, 128) chunks. The integrate runs with the free split (K5 then K4),
+the reference step's default. The reference's XLA fallback path (dense
+integrate and the TSDF ray marcher) is not ported yet.
+
+Entry points put their tensors on ``device``, the card by default; a
+caller that wants the CPU (the plain versions of every kernel) asks for
+it with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def kinfu_init(
     origin=None,
     init_pose=None,
     dtype=torch.int32,
-    device="cpu",
+    device="cuda",
 ) -> KinFuState:
     """Fresh state with every tensor on ``device``."""
     device = torch.device(device)
@@ -88,10 +93,15 @@ def kinfu_step(
     angle_threshold: float = 0.5236,
     max_weight: float = 128.0,
     z_min: float = 0.3,
+    forced_pose=None,
 ) -> KinFuState:
     """Track and fuse one (H, W) depth frame. The volume and planes of
     ``state`` are updated IN PLACE (the reference donates them); every
-    other field of the returned state is new."""
+    other field of the returned state is new.
+
+    ``forced_pose`` (4, 4) fuses the frame at a known camera pose
+    instead of tracking: ICP is skipped, rmse and correspondences are 0
+    and the frame always integrates."""
     vol = state.volume
     if vol.data.dtype != torch.int32 or len(set(vol.dims)) != 1 or vol.dims[0] % 128:
         raise ValueError("kinfu_step: needs a cubic packed int32 volume tiling into 128-voxel chunks")
@@ -105,36 +115,45 @@ def kinfu_step(
     tight = torch.clamp(0.5 * vol.voxel_size, min=0.006)
     if dist_threshold is None:
         dist_threshold = (tight, 0.05, 0.10)
-    icp = icp_track(
-        list(pyr.maps),
-        model_pyr,
-        state.model_pose,
-        intr,
-        iterations=iterations,
-        dist_threshold=dist_threshold,
-        angle_threshold=angle_threshold,
-        tight_threshold=tight,
-    )
-    new_pose = torch.where(is_first, state.pose, icp.pose)
+    dev = vol.data.device
+    if forced_pose is None:
+        icp = icp_track(
+            list(pyr.maps),
+            model_pyr,
+            state.model_pose,
+            intr,
+            iterations=iterations,
+            dist_threshold=dist_threshold,
+            angle_threshold=angle_threshold,
+            tight_threshold=tight,
+        )
+        new_pose = torch.where(is_first, state.pose, icp.pose)
+        icp_rmse, icp_corr = icp.rmse, icp.n_corr
 
-    # Tracking-loss gate: drop the frame when the correspondence set
-    # collapsed or the live view disagrees with the model (mean clipped
-    # |live - model| depth over jointly valid pixels > 0.15 m), unless
-    # the model itself was too sparse to track against (growth phase).
-    min_corr = max(32, int(0.002 * intr.width * intr.height))
-    model_valid = state.model_maps[mp.MD_VALID] > 0.5
-    model_px = model_valid.sum()
-    both_valid = (raw_depth > 0) & model_valid
-    view_incons = torch.where(
-        both_valid,
-        torch.clamp((raw_depth - state.model_maps[mp.MD_DEPTH]).abs(), max=1.0),
-        0.0,
-    ).sum() / torch.clamp(both_valid.sum(), min=1)
-    tracked = (
-        is_first
-        | ((icp.n_corr >= min_corr) & (view_incons <= 0.15))
-        | (model_px < 4 * min_corr)
-    )
+        # Tracking-loss gate: drop the frame when the correspondence set
+        # collapsed or the live view disagrees with the model (mean
+        # clipped |live - model| depth over jointly valid pixels >
+        # 0.15 m), unless the model itself was too sparse to track
+        # against (growth phase).
+        min_corr = max(32, int(0.002 * intr.width * intr.height))
+        model_valid = state.model_maps[mp.MD_VALID] > 0.5
+        model_px = model_valid.sum()
+        both_valid = (raw_depth > 0) & model_valid
+        view_incons = torch.where(
+            both_valid,
+            torch.clamp((raw_depth - state.model_maps[mp.MD_DEPTH]).abs(), max=1.0),
+            0.0,
+        ).sum() / torch.clamp(both_valid.sum(), min=1)
+        tracked = (
+            is_first
+            | ((icp_corr >= min_corr) & (view_incons <= 0.15))
+            | (model_px < 4 * min_corr)
+        )
+    else:  # known pose: no tracking, always fuse
+        new_pose = torch.as_tensor(forced_pose, dtype=torch.float32).to(dev)
+        icp_rmse = torch.zeros((), dtype=torch.float32, device=dev)
+        icp_corr = torch.zeros((), dtype=torch.int32, device=dev)
+        tracked = torch.ones((), dtype=torch.bool, device=dev)
     new_pose = torch.where(tracked, new_pose, state.pose)
     depth_eff = torch.where(tracked, raw_depth, 0.0)
 
@@ -151,8 +170,8 @@ def kinfu_step(
         model_maps=model_maps,
         model_pose=torch.where(tracked, new_pose, state.model_pose),
         frame_index=state.frame_index + 1,
-        last_rmse=torch.where(is_first, 0.0, icp.rmse),
-        last_corr=torch.where(is_first, 0, icp.n_corr).to(torch.int32),
+        last_rmse=torch.where(is_first, 0.0, icp_rmse),
+        last_corr=torch.where(is_first, 0, icp_corr).to(torch.int32),
         last_tracked=tracked,
     )
 
@@ -177,7 +196,7 @@ STATE_FIELDS = (
 )
 
 
-def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> KinFuState:
+def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
     """KinFuState from numpy arrays keyed by ``STATE_FIELDS`` (``data`` is
     the packed int32 volume); e.g. the fields of a reference state."""
     device = torch.device(device)

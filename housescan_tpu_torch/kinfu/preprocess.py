@@ -11,7 +11,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.kinfu.camera import Intrinsics, pixel_rays
 from housescan_tpu_torch.kinfu.maps import halve_maps
 from housescan_tpu_torch.ops.preprocess_cuda import (
     _shift2d,
@@ -43,6 +43,11 @@ def downsample_depth(depth: torch.Tensor, sigma_depth: float = 0.03) -> torch.Te
         zero,
     )
     return halve_maps(smoothed[None])[0]
+
+
+def depth_to_vertices(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """(H, W) depth -> (H, W, 3) camera-frame vertex map (0 where invalid)."""
+    return pixel_rays(intr, depth.dtype, depth.device) * depth[..., None]
 
 
 def _vertices_cm(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:

@@ -7,6 +7,7 @@ PyTorch version, and a note on the Pallas kernel it replaces:
 - ``icp_cuda.icp_level`` (K3, ``csrc/icp.cu``; the 6x6 solve of
   ``solve6.py`` inlined as ``csrc/solve6.cuh``)
 - ``tsdf_stream.tsdf_integrate_stream`` (K4, ``csrc/tsdf_stream.cu``; the
-  plane fit of ``planes.py`` inlined as ``csrc/planes.cuh``)
+  plane fit of ``planes.py`` inlined as ``csrc/planes.cuh``; and K5, the
+  free carve of the superblock split, ``csrc/tsdf_free.cu``)
 - ``raycast_tiles.raycast_tiles_maps`` (K6, ``csrc/raycast_tiles.cu``)
 """

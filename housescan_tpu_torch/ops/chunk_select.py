@@ -17,8 +17,13 @@ descriptors for the TPU's grid; this port lists single chunks as decoded
 descriptor rows (ci, cj, ck, class, level, v0, u0). Every chunk the
 reference updates is listed with the same descriptor; unlisted chunks
 keep their volume data and planes bit-identical. Plain tensor code, no
-kernel. The pure-free superblock split (``free_split``) and x-pairing
-are not ported.
+kernel. X-pairing is not ported.
+
+``free_split=True`` also splits off the pure-free superblocks
+(``FreeWorkList``): (32, 32, 128)-voxel groups of 4 x 4 chunks whose
+every listed chunk is FREE and holds no observed negative tsdf. Their
+member chunks leave the main list and go to the free carve (K5,
+``ops/tsdf_stream.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,21 @@ class WorkList(NamedTuple):
 
     desc: torch.Tensor  # (n_chunks, 8) int32 rows [ci, cj, ck, cls, level, v0, u0, 0]
     count: torch.Tensor  # (1,) int32 number of listed chunks
+
+
+class FreeWorkList(NamedTuple):
+    """Pure-free superblocks, listed ones first in raster order; the
+    padding repeats the last listed entry (all zeros when none is).
+
+    A superblock is (32, 32, 128) voxels: chunks (4 bi + qi, 4 bj + qj,
+    bk) for qi, qj in 0..3; bit qi * 4 + qj of ``bitmap`` marks a member
+    chunk the free carve updates."""
+
+    bitmap: torch.Tensor  # (n_sb,) int32 16 member bits
+    count: torch.Tensor  # (1,) int32 listed superblocks, at least 1
+    bi: torch.Tensor  # (n_sb,) int32 superblock x index (32-voxel units)
+    bj: torch.Tensor  # (n_sb,) int32 superblock y index
+    bk: torch.Tensor  # (n_sb,) int32 chunk z index
 
 
 def _coarsen(m: torch.Tensor, pad_value: float, reduce_min: bool) -> torch.Tensor:
@@ -107,12 +127,17 @@ def build_worklist(
     origin: torch.Tensor,
     trunc: torch.Tensor,
     sat_quarters: torch.Tensor = None,
-) -> WorkList:
+    neg_flags: torch.Tensor = None,
+    free_split: bool = False,
+):
     """Classify all chunks and list the non-SKIP ones.
 
     ``sat_quarters`` ((n, 4) bool, chunk raster order) marks z-quarters
     whose free space is saturated (planes field 11): a free + saturated
-    quarter counts as behind."""
+    quarter counts as behind. With ``free_split`` the result is
+    ``(WorkList, FreeWorkList or None)``: the split needs x and y chunk
+    counts divisible by 4, and ``neg_flags`` ((n,) bool, planes field 11
+    column 4) excludes chunks holding an observed negative tsdf."""
     dims = (resolution,) * 3 if isinstance(resolution, int) else tuple(int(d) for d in resolution)
     nbx_x, nbx_y, nzc = dims[0] // 8, dims[1] // 8, dims[2] // 128
     n = nbx_x * nbx_y * nzc
@@ -244,6 +269,11 @@ def build_worklist(
         free, CLS_FREE, torch.where(clean, CLS_BAND, CLS_REFINE)
     ).to(torch.int32)
 
+    free_wl = None
+    if free_split and nbx_x % 4 == 0 and nbx_y % 4 == 0:
+        free_wl, in_free = _free_superblocks(free, skip, neg_flags, nbx_x, nbx_y, nzc)
+        skip = skip | in_free  # member chunks leave the main list
+
     # Band window: level l fits iff span_v <= 22*2^l and span_u <= 60*2^l
     # after aligning the origin down (rows to 8, cols to 64).
     cumin = torch.clamp(umin, 0.0, w_img - 1.0)
@@ -276,7 +306,53 @@ def build_worklist(
     )
     order = torch.sort(skip.to(torch.int32), stable=True).indices
     count = (~skip).sum().to(torch.int32).reshape(1)
-    return WorkList(desc=desc[order].contiguous(), count=count)
+    wl = WorkList(desc=desc[order].contiguous(), count=count)
+    return (wl, free_wl) if free_split else wl
+
+
+def _free_superblocks(free, skip, neg_flags, nbx_x, nbx_y, nzc):
+    """(FreeWorkList, (n,) bool member-chunk mask). A superblock
+    qualifies when it lists at least one chunk and every listed chunk in
+    it is FREE with no negative flag; those chunks are its members."""
+    n = free.shape[0]
+    dev = free.device
+    neg = torch.zeros_like(free) if neg_flags is None else neg_flags
+    free_ok = free & ~skip & ~neg
+    blocker = ~skip & ~free_ok  # listed chunks the free carve cannot take
+
+    def g(a):  # (n,) -> (nsx, 4, nsy, 4, nzc), chunk raster order
+        return a.reshape(nbx_x // 4, 4, nbx_y // 4, 4, nzc)
+
+    sb_ok = g(free_ok).any(dim=3).any(dim=1) & ~g(blocker).any(dim=3).any(dim=1)
+    in_free = g(free_ok) & sb_ok[:, None, :, None, :]
+    bitmap = torch.zeros(sb_ok.shape, dtype=torch.int32, device=dev)
+    for qi in range(4):
+        for qj in range(4):
+            bitmap = bitmap | (in_free[:, qi, :, qj, :].to(torch.int32) << (qi * 4 + qj))
+    n_sb = bitmap.numel()
+    nsy = nbx_y // 4
+    ids = torch.arange(n_sb, dtype=torch.int32, device=dev)
+    coords = torch.stack([ids // (nsy * nzc), (ids // nzc) % nsy, ids % nzc])
+    order = torch.sort((~sb_ok.reshape(n_sb)).to(torch.int32), stable=True).indices
+    s_bitmap = bitmap.reshape(n_sb)[order]
+    s_coords = coords[:, order]
+    count = sb_ok.sum().to(torch.int32)
+    # padding repeats the last listed entry; nothing listed -> all zeros
+    last = torch.clamp(count - 1, min=0).long()
+    real = ids < count
+    any_real = count > 0
+    fb = torch.where(real, s_bitmap, s_bitmap[last])
+    fb = torch.where(any_real, fb, 0)
+    fc = torch.where(real[None], s_coords, s_coords[:, last][:, None])
+    fc = torch.where(any_real, fc, 0)
+    fwl = FreeWorkList(
+        bitmap=fb.contiguous(),
+        count=torch.clamp(count, min=1).reshape(1),
+        bi=fc[0].contiguous(),
+        bj=fc[1].contiguous(),
+        bk=fc[2].contiguous(),
+    )
+    return fwl, in_free.reshape(n)
 
 
 def _mip_h(h: int) -> int:
@@ -294,3 +370,18 @@ def decode_worklist(wl: WorkList):
     count = int(wl.count[0])
     rows = np.asarray(wl.desc[:count, :7].cpu())
     return [tuple(int(x) for x in r) for r in rows]
+
+
+def decode_free_worklist(fwl: FreeWorkList):
+    """(bitmap, bi, bj, bk) tuples of the listed superblocks, and the
+    (ci, cj, ck) member chunks they carve, in list order."""
+    count = int(fwl.count[0])
+    cols = [np.asarray(a[:count].cpu()) for a in (fwl.bitmap, fwl.bi, fwl.bj, fwl.bk)]
+    entries = [tuple(int(c[s]) for c in cols) for s in range(count)]
+    members = [
+        (bi * 4 + b // 4, bj * 4 + b % 4, bk)
+        for bm, bi, bj, bk in entries
+        for b in range(16)
+        if (bm >> b) & 1
+    ]
+    return entries, members

@@ -2,10 +2,11 @@
 
 All kernels compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into ONE shared library with a plain C interface, loaded with ctypes (no
-PyTorch headers, so a build takes seconds). The library is built at first
-use into ``build/housescan_kernels/`` at the repository root (git-ignored),
-named by a hash of the sources and flags, so a changed source rebuilds and
-concurrent processes never load a half-written file.
+PyTorch headers, so a build takes seconds). Each source compiles in its
+own ``nvcc`` process, all started together, then one link. The library is
+built at first use into ``build/housescan_kernels/`` at the repository
+root (git-ignored), named by a hash of the sources and flags, so a changed
+source rebuilds and concurrent processes never load a half-written file.
 
 ``--fmad=false`` keeps every float32 multiply and add separately rounded,
 as on the CPU: the kernels then reproduce their plain PyTorch versions'
@@ -33,9 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "housescan_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("bilateral", "icp_level", "tsdf_stream", "raycast_tiles")
+KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles")
 
 launch_counts = {k: 0 for k in KERNELS}
 plain_counts = {k: 0 for k in KERNELS}
@@ -59,6 +60,9 @@ _SIGNATURES = {
         _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
         _P, _F, _P,
     ],
+    # vol, planes, bitmap, count, bi, bj, bk, n_sb, ny, nz, params, sat_w,
+    # stream
+    "hs_tsdf_free": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _F, _P],
     # cand, n_tiles, max_ct, params, out, h, w_pad, stream
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
 }
@@ -97,15 +101,28 @@ def load():
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.time()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
+        objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o") for src in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{log}")
+        link = subprocess.run(
+            [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        for obj in objs:
+            obj.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         build_info["seconds"] = time.time() - t0
-        build_info["ptxas"] = res.stderr + res.stdout
+        build_info["ptxas"] = "".join(logs)
         os.replace(tmp, so)
     build_info["path"] = str(so)
     lib = ctypes.CDLL(str(so))

@@ -1,4 +1,5 @@
-"""K4: work-list TSDF integrate with the persistent sub-block plane refit.
+"""K4 and K5: the work-list TSDF integrate with the persistent sub-block
+plane refit, and the pure-free carve of the superblock split.
 
 Replaces ``housescan_tpu/ops/tsdf_stream.py:_kernel`` + ``_process_half``
 (via ``tsdf_integrate_stream``). For every chunk of the work list
@@ -21,11 +22,21 @@ which saves a full copy of the 512 MB volume per frame.
 
 The reference's hi/lo bf16 splits, the column-flat base and the one-hot
 window contractions are MXU precision engineering; here the bilinear
-lookup reads its 2x2 taps in plain float32. The pure-free superblock
-kernel (K5, ``free_split=True``) is not ported: the reference shows it
-bit-identical to this unsplit path.
+lookup reads its 2x2 taps in plain float32.
 
-CUDA kernel ``csrc/tsdf_stream.cu``: one block of 512 threads per listed
+K5: the pure-free carve (replaces ``housescan_tpu/ops/tsdf_stream.py:
+_free_kernel``). With ``free_split=True``, the reference's default and
+this port's, the prepass splits off superblocks of 4 x 4 chunks whose
+listed chunks are all FREE with no observed negative tsdf
+(``chunk_select.FreeWorkList``). Their member chunks get the CLS_FREE
+carve verbatim and a planes tile of zeros with only the per-quarter
+saturation flags set in field 11: the eligibility rule guarantees the
+carve creates no zero crossing, so this is what K4's ``~may_cross``
+branch would write. The free carve runs first; K4 then runs on the
+shrunken main list. The two lists are disjoint, so the split is
+bit-identical to the unsplit integrate.
+
+CUDA kernel of K4, ``csrc/tsdf_stream.cu``: one block of 512 threads per listed
 chunk (the grid spans every chunk; blocks past the device-side count
 return at once, so the host never waits on the list length). The block
 reads its 8192 packed voxels once (32 KB), gathers depth from the
@@ -34,6 +45,12 @@ in 64 KB of dynamic shared memory, and one warp per sub-block fits the
 planes from there. Bound: device-memory traffic of 64 KB per listed
 chunk, about 1 GB a frame at 512^3 (~0.3 ms at 3.35 TB/s), plus the
 plane fit's ~10 float ops per voxel.
+
+CUDA kernel of K5, ``csrc/tsdf_free.cu``: one block of 512 threads per
+(listed superblock, member slot); a block past the device-side count or
+on a clear member bit returns at once. Bound: the member chunks' bytes,
+32 KB read and 32 KB written per member, plus its 1 KB planes tile;
+non-member chunks are never touched (the TPU kernel copies them through).
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ from housescan_tpu_torch.ops.chunk_select import (
     CLS_REFINE,
     WIN_U,
     WIN_V,
+    FreeWorkList,
     build_worklist,
 )
 from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, plane_fields_plain
@@ -280,6 +298,80 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     planes[ci.long(), cj.long(), ck.long()] = fields
 
 
+def _carve_chunks(data, planes, c, p):
+    """Plain K5 over member chunks ``c`` (B, 3) = (ci, cj, ck): the
+    CLS_FREE carve and the planes tile of zeros with the saturation
+    flags (``_free_kernel``)."""
+    f32 = torch.float32
+    dev = data.device
+    ci, cj, ck = c[:, 0], c[:, 1], c[:, 2]
+    b = c.shape[0]
+    ar8 = torch.arange(8, device=dev)
+    ar128 = torch.arange(CHUNK_Z, device=dev)
+    X = (ci[:, None] * 8 + ar8).reshape(b, 8, 1, 1)
+    Y = (cj[:, None] * 8 + ar8).reshape(b, 1, 8, 1)
+    Z = (ck[:, None] * CHUNK_Z + ar128).reshape(b, 1, 1, CHUNK_Z)
+    blk = data[X, Y, Z]
+    told = unpack_t(blk)
+    wold = unpack_w(blk)
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (p[k] for k in range(9))
+    tx, ty, tz = p[9], p[10], p[11]
+    fx, fy, cx, cy = p[12], p[13], p[14], p[15]
+    vs = p[17]
+    ox, oy, oz = p[18], p[19], p[20]
+    max_weight, img_w, img_h = p[21], p[22], p[23]
+    ixf = ar8.to(f32)
+    xw = ox + ((ci * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 8, 1, 1) + 0.5) * vs
+    yw = oy + ((cj * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 1, 8, 1) + 0.5) * vs
+    zw = oz + ((ck * CHUNK_Z).to(f32).reshape(b, 1, 1, 1)
+               + ar128.to(f32).reshape(1, 1, 1, CHUNK_Z) + 0.5) * vs
+    dx = xw - tx
+    dy = yw - ty
+    dz = zw - tz
+    xc = dx * r00 + dy * r01 + dz * r02
+    yc = dx * r10 + dy * r11 + dz * r12
+    zc = dx * r20 + dy * r21 + dz * r22
+    fxx = fx * xc
+    fyy = fy * yc
+    iv = (
+        (zc > 1e-6)
+        & (fxx >= -cx * zc)
+        & (fxx <= (img_w - 1.0 - cx) * zc)
+        & (fyy >= -cy * zc)
+        & (fyy <= (img_h - 1.0 - cy) * zc)
+    )
+    wadd = iv.to(f32)
+    wnew = torch.minimum(wold + wadd, max_weight)
+    denom = torch.clamp(wold + wadd, min=1.0)
+    tnew = (told * wold + wadd) / denom
+    tcur = torch.where(iv, tnew, told)
+    data[X, Y, Z] = pack_tw(tcur, wnew)
+
+    obs = wnew > 0.0
+    qshape = (b, 8, 8, N_QUARTERS, CHUNK_Z // N_QUARTERS)
+    q_minw = torch.where(obs, wnew, BIG).reshape(qshape).amin(dim=(1, 2, 4))
+    q_mint = torch.where(obs, tcur, 1.0).reshape(qshape).amin(dim=(1, 2, 4))
+    q_maxw = wnew.reshape(qshape).amax(dim=(1, 2, 4))
+    sat = ((q_minw >= SAT_W) & (q_mint > 0.999) & (q_maxw > 0.0)).to(f32)
+    tile = torch.zeros((b, N_FIELDS, NSUB_C), dtype=f32, device=dev)
+    tile[:, FIELD_SAT, :N_QUARTERS] = sat
+    planes[ci, cj, ck] = tile
+
+
+def free_carve_plain(data, planes, fwl: FreeWorkList, params):
+    """K5's plain version: every member chunk of the listed superblocks,
+    updated in place."""
+    n = int(fwl.count[0])
+    bits = torch.arange(16, device=data.device)
+    member = ((fwl.bitmap[:n, None] >> bits) & 1) > 0  # (n, 16)
+    ci = fwl.bi[:n, None] * 4 + bits // 4
+    cj = fwl.bj[:n, None] * 4 + bits % 4
+    ck = fwl.bk[:n, None].expand(n, 16)
+    chunks = torch.stack([ci[member], cj[member], ck[member]], dim=1).long()
+    for s in range(0, chunks.shape[0], PLAIN_BATCH):
+        _carve_chunks(data, planes, chunks[s : s + PLAIN_BATCH], params)
+
+
 def integrate_plain(data, planes, desc, count, mips, params, nbx, nzc):
     """K4's plain version: batches of listed chunks, updated in place."""
     n = int(count[0])
@@ -295,10 +387,12 @@ def tsdf_integrate_stream(
     pose: torch.Tensor,
     intr: Intrinsics,
     max_weight: float = 128.0,
+    free_split: bool = True,
 ):
-    """K4: integrate ``depth`` at ``pose`` into the packed volume and
-    refresh the persistent planes of every listed chunk, both IN PLACE.
-    Returns (vol, planes)."""
+    """Integrate ``depth`` at ``pose`` into the packed volume and refresh
+    the persistent planes of every listed chunk, both IN PLACE: the free
+    carve (K5) over the pure-free superblocks when ``free_split``, then K4
+    over the main list. Returns (vol, planes)."""
     dims = vol.dims
     if any(d % 8 for d in dims) or dims[2] % CHUNK_Z or vol.data.dtype != torch.int32:
         raise ValueError(f"tsdf_integrate_stream: packed int32 volume tiling into (8, 8, 128) chunks required, got {dims}")
@@ -307,14 +401,23 @@ def tsdf_integrate_stream(
         raise ValueError(f"planes shape {tuple(planes.shape)} != {planes_shape(dims)}")
     depth = depth.to(torch.float32)
     sat_q = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
-    wl = build_worklist(depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc,
-                        sat_quarters=sat_q)
+    geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
+    if free_split:
+        neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, neg_flags=neg_c, free_split=True)
+    else:
+        wl, fwl = build_worklist(*geom, sat_quarters=sat_q), None
     mips = build_depth_mips(depth)
     params = _stream_params(vol, pose, intr, max_weight, nbx, nzc)
     if vol.data.device.type == "cpu":
+        if fwl is not None:
+            cuda_lib.plain_counts["tsdf_free"] += 1
+            free_carve_plain(vol.data, planes, fwl, params)
         cuda_lib.plain_counts["tsdf_stream"] += 1
         integrate_plain(vol.data, planes, wl.desc, wl.count, mips, params, nbx, nzc)
         return vol, planes
+    if fwl is not None:
+        launch_free_kernel(vol.data, planes, fwl, params)
     launch_stream_kernel(vol.data, planes, wl.desc, wl.count, mips, params)
     return vol, planes
 
@@ -341,3 +444,24 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
     )
     cuda_lib.check(rc, "hs_tsdf_stream")
     cuda_lib.launch_counts["tsdf_stream"] += 1
+
+
+def launch_free_kernel(data, planes, fwl: FreeWorkList, params):
+    """The CUDA K5 launch over a free work list (in place)."""
+    cuda_lib.require_cuda("tsdf_free", data, fwl.bitmap, fwl.count, fwl.bi, fwl.bj, fwl.bk,
+                          dtype=torch.int32)
+    cuda_lib.require_cuda("tsdf_free", planes, params)
+    n_sb = fwl.bitmap.shape[0]
+    if (data.dim() != 3 or tuple(planes.shape) != planes_shape(tuple(data.shape))
+            or fwl.count.numel() != 1 or params.numel() < 26
+            or any(a.dim() != 1 or a.shape[0] != n_sb for a in (fwl.bi, fwl.bj, fwl.bk))
+            or data.shape[0] % 32 or data.shape[1] % 32):
+        raise ValueError("tsdf_free: bad volume, planes, free work-list or params shapes")
+    _, ny, nz = data.shape
+    rc = cuda_lib.load().hs_tsdf_free(
+        data.data_ptr(), planes.data_ptr(), fwl.bitmap.data_ptr(), fwl.count.data_ptr(),
+        fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), n_sb, ny, nz,
+        params.data_ptr(), SAT_W, cuda_lib.stream_ptr(),
+    )
+    cuda_lib.check(rc, "hs_tsdf_free")
+    cuda_lib.launch_counts["tsdf_free"] += 1

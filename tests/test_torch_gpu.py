@@ -12,7 +12,9 @@ float32 operations; they differ only in summation order. Bounds: K1
 reference's bounds for its fused level); K4 weights identical, packed
 tsdf within one step on >= 99.9% of voxels, plane valid flags on >= 99.9%
 of sub-blocks, fields 1e-5 (both sum the moments in float64), field 11
-identical; K6 valid masks on >= 99.5% of pixels, rows 1e-5 where both hit.
+identical; K6 valid masks on >= 99.5% of pixels, rows 1e-5 where both hit;
+K5 bit-identical (the carve has no reduction whose order could differ),
+and so the split and unsplit integrates too.
 """
 
 import numpy as np
@@ -35,11 +37,15 @@ from housescan_tpu_torch.ops.raycast_tiles import (
     launch_raycast_kernel,
     raycast_tiles_plain,
 )
+from housescan_tpu_torch.ops.chunk_select import decode_free_worklist
 from housescan_tpu_torch.ops.tsdf_stream import (
     FIELD_SAT,
+    N_QUARTERS,
     _stream_params,
     build_depth_mips,
+    free_carve_plain,
     integrate_plain,
+    launch_free_kernel,
     launch_stream_kernel,
     planes_shape,
     tsdf_integrate_stream,
@@ -167,7 +173,59 @@ def test_step_runs_through_every_kernel(cuda):
     torch.cuda.synchronize()
     assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNELS)
     assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
-    cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0])
+    cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                      device="cpu")
     cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA)
     np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
     assert np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[2][3, :3]) < 0.02
+
+
+def _carved_scene(cuda, n):
+    """A 0.75 m cube of free space in front of the orbit's camera (5.9 mm
+    voxels at 128^3), where the free carve's members hold voxels in view."""
+    poses, frames = _stream(QQVGA, n, 0.3, cuda)
+    vol = tsdf_new(128, 0.75, 0.06, origin=torch.tensor([-0.375, -0.375, 0.35]), device=cuda)
+    return vol, torch.zeros(planes_shape(128), device=cuda), poses, frames
+
+
+@pytest.mark.gpu
+def test_free_kernel_matches_plain(cuda):
+    vol, planes, poses, frames = _carved_scene(cuda, 2)
+    vol, planes = tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda),
+                                        QQVGA, free_split=False)
+    p1 = torch.from_numpy(poses[1]).to(cuda)
+    sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+    neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+    _, fwl = build_worklist(frames[1], p1, QQVGA, 128, vol.voxel_size, vol.origin, vol.trunc,
+                            sat_quarters=sat, neg_flags=neg, free_split=True)
+    assert len(decode_free_worklist(fwl)[1]) > 16
+    params = _stream_params(vol, p1, QQVGA, 128.0, 16, 1)
+    before = cuda_lib.launch_counts["tsdf_free"]
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kp, fwl, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    free_carve_plain(qd, qp, fwl, params)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tsdf_free"] == before + 1
+    assert int((kd != vol.data).sum()) > 10000
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["room", "carved"])
+def test_split_orbit_bit_identical_to_unsplit(cuda, scene):
+    """Three frames at the orbit's poses, with and without the split."""
+    if scene == "carved":
+        va, pa, poses, frames = _carved_scene(cuda, 3)
+    else:
+        poses, frames = _stream(QQVGA, 3, 0.3, cuda)
+        va, pa = tsdf_new(128, 3.0, 0.06, device=cuda), torch.zeros(planes_shape(128), device=cuda)
+    vb, pb = va._replace(data=va.data.clone()), pa.clone()
+    for d, p in zip(frames, poses):
+        p = torch.from_numpy(p).to(cuda)
+        tsdf_integrate_stream(va, pa, d, p, QQVGA, free_split=True)
+        tsdf_integrate_stream(vb, pb, d, p, QQVGA, free_split=False)
+    torch.cuda.synchronize()
+    assert torch.equal(va.data, vb.data)
+    assert torch.equal(pa, pb)

@@ -9,6 +9,7 @@ levels), the same tracking decision, and model-map valid masks agreeing
 on >= 99% of pixels.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -76,7 +77,7 @@ def test_step_matches_reference_from_carried_state(stream):
     carried = {k: np.array(v) for k, v in _ref_state_numpy(js).items()}
     js = j_step(js, jnp.asarray(frames_np[2]), jintr, use_pallas=True, interpret=True)
 
-    ts = kinfu_step(state_from_numpy(carried), frames[2], INTR)
+    ts = kinfu_step(state_from_numpy(carried, device="cpu"), frames[2], INTR)
     assert bool(ts.last_tracked) == bool(js.last_tracked)
     np.testing.assert_allclose(ts.pose.numpy(), np.asarray(js.pose), atol=1e-4)
     tv = ts.model_maps[7].numpy() > 0.5
@@ -88,11 +89,11 @@ def test_step_matches_reference_from_carried_state(stream):
 
 def test_state_round_trip(stream):
     poses, frames = stream
-    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0])
+    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device="cpu")
     st = kinfu_step(st, frames[0], INTR)
     d = state_to_numpy(st)
     assert set(d) == set(STATE_FIELDS)
-    back = state_to_numpy(state_from_numpy(d))
+    back = state_to_numpy(state_from_numpy(d, device="cpu"))
     for k in STATE_FIELDS:
         np.testing.assert_array_equal(back[k], d[k])
         assert back[k].dtype == d[k].dtype
@@ -104,7 +105,7 @@ def test_tracking_closed_loop(stream):
     six tracked frames."""
     poses, frames = stream
     cuda_lib.reset_counts()
-    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0])
+    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device="cpu")
     st, traj = kinfu_run(st, frames[:7], INTR)
     err = np.linalg.norm(st.pose[3, :3].numpy() - poses[6][3, :3])
     assert err < 0.020, f"closed-loop drift {err * 1000:.1f} mm over 6 frames"
@@ -119,7 +120,7 @@ def test_tracking_loss_drops_frame(stream):
     """A teleported view is dropped: pose, volume, planes and model
     unchanged, last_tracked False; the next good frame re-tracks."""
     poses, frames = stream
-    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0])
+    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device="cpu")
     for i in range(2):
         st = kinfu_step(st, frames[i], INTR)
     assert bool(st.last_tracked)
@@ -138,7 +139,33 @@ def test_tracking_loss_drops_frame(stream):
 
 def test_step_rejects_untileable_volume(stream):
     with pytest.raises(ValueError):
-        kinfu_init(INTR, resolution=96)
+        kinfu_init(INTR, resolution=96, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points put their tensors on CUDA unless the
+    caller asks for the CPU (read without a card, from the signatures)."""
+    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+    from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state
+
+    for fn in (kinfu_init, state_from_numpy, scan_to_room_dir, load_scan_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+def test_forced_pose_skips_tracking(stream):
+    """A known pose is fused as given: no ICP (rmse and correspondences
+    0), always integrated, even for a view tracking would drop."""
+    poses, frames = stream
+    st = kinfu_init(INTR, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device="cpu")
+    st = kinfu_step(st, frames[0], INTR)
+    half, boxes = furnished_room()
+    far = orbit_poses(2, radius=0.4, yaw_range=np.pi)[1]
+    bad = render_depth_stream(INTR, far[None], half, boxes)[0]
+    st = kinfu_step(st, bad, INTR, forced_pose=far)
+    assert bool(st.last_tracked)
+    np.testing.assert_array_equal(st.pose.numpy(), far)
+    np.testing.assert_array_equal(st.model_pose.numpy(), far)
+    assert float(st.last_rmse) == 0.0 and int(st.last_corr) == 0
 
 
 def test_port_imports_no_jax():
@@ -147,6 +174,11 @@ def test_port_imports_no_jax():
         "import housescan_tpu_torch\n"
         "import housescan_tpu_torch.kinfu.pipeline, housescan_tpu_torch.kinfu.synthetic\n"
         "import housescan_tpu_torch.ops.cuda_lib\n"
+        "import housescan_tpu_torch.config, housescan_tpu_torch.capture.replay\n"
+        "import housescan_tpu_torch.io.pcd, housescan_tpu_torch.io.ply, housescan_tpu_torch.io.planes_txt\n"
+        "import housescan_tpu_torch.geometry.plane, housescan_tpu_torch.geometry.fitting\n"
+        "import housescan_tpu_torch.kinfu.ransac, housescan_tpu_torch.kinfu.marching_cubes\n"
+        "import housescan_tpu_torch.kinfu.scan_checkpoint, housescan_tpu_torch.kinfu.scan\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'housescan_tpu.'))"
         " or m == 'housescan_tpu']\n"
         "assert not bad, bad\n"
