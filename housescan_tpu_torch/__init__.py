@@ -5,8 +5,8 @@ CUDA kernels.
 A port of ``housescan_tpu`` (JAX/Pallas). The layout mirrors it module for
 module (``geometry/``, ``kinfu/``, ``ops/``) and keeps its data layouts at
 every public function: channel-major (8, H, W) model maps and (6, H, W)
-live maps, the 19-row ICP packing, the int16-in-int32 packed TSDF volume,
-the persistent (R/8, R/8, R/128, 16, 16) sub-block planes, and row-vector
+live maps, the 19-row ICP packing, the int16-in-int32 packed and the
+float32 (2, X, Y, Z) TSDF volumes, the persistent (R/8, R/8, R/128, 16, 16) sub-block planes, and row-vector
 4x4 poses (``pose[3, :3]`` is the translation).
 
 Kernels (``ops/``) dispatch on the device of their input: a CPU tensor

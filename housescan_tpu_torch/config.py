@@ -68,8 +68,9 @@ class CameraConfig:
 class TsdfConfig:
     """TSDF volume parameters (PCL KinFu defaults: 3 m cube, 512^3 grid).
 
-    ``dtype`` is kept for file compatibility; the port fuses into the
-    packed int32 volume only."""
+    ``dtype`` names a layout for ``kinfu/tsdf.from_config``; as in the
+    reference, the scan does not read it (the fusion path picks the
+    layout)."""
 
     resolution: int = 512
     size_m: float = 3.0

@@ -1,7 +1,7 @@
 // Damped 6x6 solve + twist exponential + pose compose: the math of
 // housescan_tpu/ops/solve6_pallas.py (_solve_twist_math, K2's body) as a
-// device function that K3 (icp.cu) inlines. Operation for operation the
-// plain version housescan_tpu_torch/ops/solve6.py.
+// device function that K3 (icp.cu) inlines and K2 (solve6.cu) launches.
+// Operation for operation the plain version housescan_tpu_torch/ops/solve6.py.
 #pragma once
 
 #include "common.cuh"
@@ -22,7 +22,7 @@ __device__ __forceinline__ float hs_cos_taylor(float t) {
 // a: 36 (row-major A), b: 6, pose: 16 (row-major, row-vector convention).
 // out: 16 new pose entries + the post-clamp step norm (0 when the solve
 // failed and the pose was kept).
-__device__ void hs_solve_twist(const float* a, const float* b, const float* pose,
+__device__ inline void hs_solve_twist(const float* a, const float* b, const float* pose,
                                float damping, float max_step, float* out) {
   const float null_threshold = 1e-2f;
   float scale = a[0];

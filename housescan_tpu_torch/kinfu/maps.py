@@ -80,3 +80,33 @@ def pack_icp_inputs(
     if (hp, wp) != (h, w):
         packed = F.pad(packed, (0, wp - w, 0, hp - h))
     return packed.contiguous()
+
+
+# ---- interleaved (h, w, 3) maps of the XLA path (``kinfu/icp.py``,
+# ``kinfu/raycast.py``) ------------------------------------------------
+
+
+def model_to_hwc(model: torch.Tensor):
+    """(8, h, w) model maps -> (vertices (h, w, 3), normals (h, w, 3),
+    valid (h, w) bool, depth (h, w))."""
+    return (model[MD_V].permute(1, 2, 0), model[MD_N].permute(1, 2, 0),
+            model[MD_VALID] > 0.5, model[MD_DEPTH])
+
+
+def model_from_hwc(vertices, normals, valid, depth) -> torch.Tensor:
+    """Inverse of ``model_to_hwc``."""
+    return torch.cat([
+        depth[None].to(torch.float32),
+        vertices.permute(2, 0, 1),
+        normals.permute(2, 0, 1),
+        valid[None].to(torch.float32),
+    ], dim=0)
+
+
+def live_to_hwc(live: torch.Tensor):
+    """(6, h, w) live maps -> (vertices (h, w, 3), normals (h, w, 3))."""
+    return live[LV_V].permute(1, 2, 0), live[LV_N].permute(1, 2, 0)
+
+
+def live_from_hwc(vertices, normals) -> torch.Tensor:
+    return torch.cat([vertices.permute(2, 0, 1), normals.permute(2, 0, 1)], dim=0)

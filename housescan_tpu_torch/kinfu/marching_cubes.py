@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from housescan_tpu_torch.io.ply import Mesh
-from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, unpack_t, unpack_w
+from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 
 # Cube corners in standard MC ordering (bit k of a case = corner k inside).
 _CORNERS = np.array(
@@ -124,20 +124,20 @@ def _cell_triangles(corner_t, base, origin, voxel_size):
 
 
 def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0) -> Mesh:
-    """Zero-isosurface triangle soup of a packed TSDF volume (host Mesh:
-    (3T, 3) float32 vertices, faces 0..3T-1)."""
+    """Zero-isosurface triangle soup of a TSDF volume in either layout
+    (host Mesh: (3T, 3) float32 vertices, faces 0..3T-1)."""
     nx, ny, nz = vol.dims
     slab = min(slab, nx - 1)
     empty = Mesh(vertices=np.zeros((0, 3), np.float32), faces=np.zeros((0, 3), np.int32))
     if slab <= 0:
         return empty
     origin = vol.origin.to(torch.float32)
+    t_all, w_all = vol.tsdf, vol.weight  # views, or unpacked once
     out = []
     for i in range(-(-(nx - 1) // slab)):
         x0 = min(i * slab, nx - 1 - slab)  # the last slab is clamped ...
-        blk = vol.data[x0 : x0 + slab + 1]
-        ts = unpack_t(blk)
-        ws = unpack_w(blk)
+        ts = t_all[x0 : x0 + slab + 1]
+        ws = w_all[x0 : x0 + slab + 1]
         ok = (ws >= min_weight) & (ws > 0)
         observed = any_neg = all_neg = None
         for dx, dy, dz in _CORNERS:

@@ -1,15 +1,26 @@
 """The KinFu tracking + fusion loop.
 
 One ``kinfu_step``: bilateral filter (K1) -> pyramid -> model-map pyramid
-and gradients -> per-level ICP (K3) -> tracking-loss gate -> work-list
-TSDF integrate with the plane refit (K4) -> plane raycast (K6) and seam
-masking, which gives the next frame's model maps. The step runs entirely
-on the state's device and never waits on it from the host.
+-> per-level ICP -> tracking-loss gate -> integrate -> raycast, which
+gives the next frame's model maps. The step runs entirely on the state's
+device and never waits on it from the host. Two paths, as in the
+reference:
 
-The step requires a cubic packed int32 volume that tiles into
-(8, 8, 128) chunks. The integrate runs with the free split (K5 then K4),
-the reference step's default. The reference's XLA fallback path (dense
-integrate and the TSDF ray marcher) is not ported yet.
+  * the kernel path (``use_pallas=True``, the port's default): ICP by K3,
+    the work-list integrate with the plane refit and the free split (K5
+    then K4), the plane raycast (K6) with seam masking. It needs a cubic
+    packed int32 volume that tiles into (8, 8, 128) chunks;
+  * the XLA path (``use_pallas=False``, the reference's default): the
+    XLA ICP loop with the standalone solve (K2), the dense integrate
+    (``tsdf.tsdf_integrate``) and the TSDF ray marcher
+    (``kinfu/raycast.py``). It takes either volume layout at any
+    resolution; the persistent planes are a (1, 1, 1, 16, 16) dummy when
+    the volume does not tile.
+
+Why the port's default differs: the reference defaults to the XLA path
+because its kernels need a TPU. The port's kernels run on both devices
+(the CPU takes their plain versions), and every port caller relies on
+the kernel path.
 
 Entry points put their tensors on ``device``, the card by default; a
 caller that wants the CPU (the plain versions of every kernel) asks for
@@ -28,14 +39,17 @@ from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.icp import icp_track
 from housescan_tpu_torch.kinfu.preprocess import build_pyramid
-from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, tsdf_new
+from housescan_tpu_torch.kinfu.raycast import raycast
+from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, tsdf_integrate, tsdf_new
 from housescan_tpu_torch.ops.raycast_planes import raycast_planes
 from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
 
 
 class KinFuState(NamedTuple):
     volume: TsdfVolume
-    planes: torch.Tensor  # (R/8, R/8, R/128, 16, 16) persistent sub-block planes
+    # (R/8, R/8, R/128, 16, 16) persistent sub-block planes; a dummy
+    # (1, 1, 1, 16, 16) when the volume does not tile (XLA path only)
+    planes: torch.Tensor
     pose: torch.Tensor  # (4, 4) current camera-to-world
     model_maps: torch.Tensor  # (8, H, W) raycast at model_pose
     model_pose: torch.Tensor  # (4, 4)
@@ -57,13 +71,13 @@ def kinfu_init(
     dtype=torch.int32,
     device="cuda",
 ) -> KinFuState:
-    """Fresh state with every tensor on ``device``."""
+    """Fresh state with every tensor on ``device``; ``dtype`` picks the
+    volume layout (``torch.int32`` packed, ``torch.float32`` float)."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
-    if resolution % 128:
-        raise ValueError("kinfu_init: resolution must tile into 128-voxel chunks")
     vol = tsdf_new(resolution, size_m, trunc, origin, dtype, device=device)
+    planes_dims = planes_shape(resolution) if pallas_supported(resolution) else (1, 1, 1, 16, 16)
     pose = (
         torch.eye(4, dtype=torch.float32, device=device)
         if init_pose is None
@@ -71,7 +85,7 @@ def kinfu_init(
     )
     return KinFuState(
         volume=vol,
-        planes=torch.zeros(planes_shape(resolution), dtype=torch.float32, device=device),
+        planes=torch.zeros(planes_dims, dtype=torch.float32, device=device),
         pose=pose,
         model_maps=torch.zeros((mp.MODEL_ROWS, intr.height, intr.width), dtype=torch.float32, device=device),
         model_pose=pose.clone(),
@@ -80,6 +94,22 @@ def kinfu_init(
         last_corr=torch.zeros((), dtype=torch.int32, device=device),
         last_tracked=torch.ones((), dtype=torch.bool, device=device),
     )
+
+
+def pallas_supported(volume_resolution: int) -> bool:
+    """Whether the kernel path takes a volume of this resolution: it must
+    tile into 128-voxel chunks. (The reference also requires a TPU; the
+    port's kernels run on the CPU through their plain versions.)"""
+    return volume_resolution % 128 == 0
+
+
+def _integrate_dispatch(volume, planes, depth, pose, intr, max_weight, use_pallas):
+    """(volume, planes) after one integrate: the work-list kernels refresh
+    the persistent planes of the chunks they update; the dense integrate
+    leaves them as they are. Both update the volume in place."""
+    if use_pallas:
+        return tsdf_integrate_stream(volume, planes, depth, pose, intr, max_weight=max_weight)
+    return tsdf_integrate(volume, depth, pose, intr, max_weight=max_weight), planes
 
 
 @torch.no_grad()
@@ -93,18 +123,28 @@ def kinfu_step(
     angle_threshold: float = 0.5236,
     max_weight: float = 128.0,
     z_min: float = 0.3,
+    max_raycast_steps: int = 256,
+    use_pallas: bool = True,
     forced_pose=None,
 ) -> KinFuState:
     """Track and fuse one (H, W) depth frame. The volume and planes of
     ``state`` are updated IN PLACE (the reference donates them); every
     other field of the returned state is new.
 
-    ``forced_pose`` (4, 4) fuses the frame at a known camera pose
-    instead of tracking: ICP is skipped, rmse and correspondences are 0
-    and the frame always integrates."""
+    ``use_pallas`` picks the kernel path (True) or the XLA path (False;
+    ``max_raycast_steps`` is its ray marcher's step count). ``forced_pose``
+    (4, 4) fuses the frame at a known camera pose instead of tracking:
+    ICP is skipped, rmse and correspondences are 0 and the frame always
+    integrates."""
     vol = state.volume
-    if vol.data.dtype != torch.int32 or len(set(vol.dims)) != 1 or vol.dims[0] % 128:
-        raise ValueError("kinfu_step: needs a cubic packed int32 volume tiling into 128-voxel chunks")
+    if use_pallas:
+        if not vol.packed_i32:
+            raise NotImplementedError(
+                "kinfu_step: the f32 layout of K4/K5 is not ported yet; "
+                "step a float32 volume with use_pallas=False")
+        if len(set(vol.dims)) != 1 or not pallas_supported(vol.dims[0]):
+            raise ValueError("kinfu_step(use_pallas=True): needs a cubic volume tiling into "
+                             "128-voxel chunks; use_pallas=False takes any volume")
     raw_depth = raw_depth.to(device=vol.data.device, dtype=torch.float32)
     pyr = build_pyramid(raw_depth, intr, levels=levels)
     model_pyr = mp.build_map_pyramid(state.model_maps, levels)
@@ -126,6 +166,7 @@ def kinfu_step(
             dist_threshold=dist_threshold,
             angle_threshold=angle_threshold,
             tight_threshold=tight,
+            use_pallas=use_pallas,
         )
         new_pose = torch.where(is_first, state.pose, icp.pose)
         icp_rmse, icp_corr = icp.rmse, icp.n_corr
@@ -157,10 +198,14 @@ def kinfu_step(
     new_pose = torch.where(tracked, new_pose, state.pose)
     depth_eff = torch.where(tracked, raw_depth, 0.0)
 
-    volume, planes = tsdf_integrate_stream(
-        vol, state.planes, depth_eff, new_pose, intr, max_weight=max_weight
+    volume, planes = _integrate_dispatch(
+        vol, state.planes, depth_eff, new_pose, intr, max_weight, use_pallas
     )
-    model_maps = raycast_planes(planes, new_pose, intr, volume, z_min=z_min)
+    if use_pallas:
+        model_maps = raycast_planes(planes, new_pose, intr, volume, z_min=z_min)
+    else:
+        rc = raycast(volume, new_pose, intr, z_min=z_min, max_steps=max_raycast_steps)
+        model_maps = mp.model_from_hwc(rc.vertices, rc.normals, rc.valid, rc.depth)
     model_maps = torch.where(tracked, model_maps, state.model_maps)
 
     return KinFuState(
@@ -197,8 +242,9 @@ STATE_FIELDS = (
 
 
 def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
-    """KinFuState from numpy arrays keyed by ``STATE_FIELDS`` (``data`` is
-    the packed int32 volume); e.g. the fields of a reference state."""
+    """KinFuState from numpy arrays keyed by ``STATE_FIELDS``; e.g. the
+    fields of a reference state. ``data`` keeps its layout: packed int32
+    (X, Y, Z) or float32 (2, X, Y, Z)."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
@@ -206,9 +252,12 @@ def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
     def t(k, dtype):
         return torch.as_tensor(np.array(d[k]), dtype=dtype).to(device)
 
+    data = np.asarray(d["data"])
+    if data.dtype not in (np.int32, np.float32):
+        raise NotImplementedError(f"state_from_numpy: a {data.dtype} volume is not ported")
     return KinFuState(
         volume=TsdfVolume(
-            data=t("data", torch.int32),
+            data=torch.from_numpy(np.array(data)).to(device),
             origin=t("origin", torch.float32),
             voxel_size=t("voxel_size", torch.float32),
             trunc=t("trunc", torch.float32),

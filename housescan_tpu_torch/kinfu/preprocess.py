@@ -98,6 +98,13 @@ def _normals_cm(v: torch.Tensor, max_depth_jump: float = 0.08) -> torch.Tensor:
     return torch.where(valid[None], n, torch.zeros_like(n))
 
 
+def vertex_normals(vertices: torch.Tensor, max_depth_jump: float = 0.08) -> torch.Tensor:
+    """(H, W, 3) vertex map -> (H, W, 3) unit normals: ``_normals_cm`` on
+    the channel-major view (the reference documents its two layouts as
+    bit-identical, the math being elementwise per pixel)."""
+    return _normals_cm(vertices.permute(2, 0, 1), max_depth_jump).permute(1, 2, 0)
+
+
 class FramePyramid(NamedTuple):
     """Per-level depth + packed (6, h, w) live maps, level 0 = full res."""
 

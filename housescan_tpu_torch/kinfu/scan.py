@@ -1,9 +1,8 @@
 """Scan pipeline: depth stream in, reference-layout room directory out.
 
 A port of ``housescan_tpu/kinfu/scan.py``. ``scan_to_room_dir`` fuses a
-recorded stream with the production step (K1, K3, K5, K4, K6 on the
-card), then ``write_room_outputs`` extracts the surface points, detects
-the wall planes and writes
+recorded stream with ``kinfu_step``, then ``write_room_outputs`` extracts
+the surface points, detects the wall planes and writes
 
     cloud_downsampled.pcd   interaction-resolution surface cloud
     cloud_bin.pcd           full-resolution surface cloud
@@ -16,11 +15,13 @@ which the reference's room stage (``housescan_tpu.rooms.load_room``)
 loads unchanged. The volume stays on the device; only the surface cloud,
 the planes and the mesh's triangles come to the host.
 
-The fusion needs a packed int32 volume that tiles into 128-voxel chunks;
-the reference's CPU-only XLA branch is not ported, so another resolution
-raises. The reference's scan fuses into its float32 volume layout
-(``kinfu_init``'s default there); the port fuses into the packed layout
-that the reference's Pallas path uses.
+``use_pallas`` picks the fusion path and defaults to
+``pallas_supported(resolution)``: a volume that tiles into 128-voxel
+chunks takes the kernel path (K1, K3, K5, K4, K6) on the packed int32
+layout; any other takes the XLA path (K1, the XLA ICP loop with K2, the
+dense integrate, the ray marcher) on the float32 layout, the one the
+reference's scan fuses into. (The reference also sends every scan on its
+CPU to the XLA path; the port's kernel path runs on either device.)
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from housescan_tpu_torch.config import Config
 from housescan_tpu_torch.io.pcd import save_pcd
 from housescan_tpu_torch.io.ply import save_ply
 from housescan_tpu_torch.kinfu.marching_cubes import marching_cubes
-from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step, pallas_supported
 from housescan_tpu_torch.kinfu.ransac import detect_planes_to_dir
 from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state, save_scan_state
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, extract_surface_points
@@ -57,6 +58,7 @@ def scan_to_room_dir(
     checkpoint_path: Optional[Union[str, Path]] = None,
     resume: bool = False,
     known_poses: Optional[np.ndarray] = None,
+    use_pallas: Optional[bool] = None,
     device="cuda",
     timings: Optional[Dict[str, float]] = None,
 ) -> Path:
@@ -68,13 +70,16 @@ def scan_to_room_dir(
     ``<out_dir>/scan_checkpoint.npz``); ``resume=True`` continues from it,
     skipping the frames already fused. ``known_poses`` ((N, 4, 4)
     camera-to-world) fuses each frame at its known pose instead of
-    tracking. A ``timings`` dict receives the host seconds of each phase
-    (``fusion``, then those of ``write_room_outputs``), each ending in a
-    device synchronize."""
+    tracking. ``use_pallas`` picks the fusion path (default:
+    ``pallas_supported`` of the configured resolution). A ``timings``
+    dict receives the host seconds of each phase (``fusion``, then those
+    of ``write_room_outputs``), each ending in a device synchronize."""
     config = config or Config()
     intr = stream.intrinsics
     tsdf_cfg = config.tsdf
     device = torch.device(device)
+    if use_pallas is None:
+        use_pallas = pallas_supported(tsdf_cfg.resolution)
 
     ckpt = Path(checkpoint_path) if checkpoint_path else Path(out_dir) / "scan_checkpoint.npz"
     start_frame = 0
@@ -99,6 +104,7 @@ def scan_to_room_dir(
             size_m=tsdf_cfg.size_m,
             trunc=tsdf_cfg.trunc_dist,
             init_pose=init_pose,
+            dtype=torch.int32 if use_pallas else torch.float32,
             device=device,
         )
     if timings is not None and device.type == "cuda":
@@ -119,6 +125,7 @@ def scan_to_room_dir(
                 angle_threshold=config.icp.angle_threshold,
                 max_weight=tsdf_cfg.max_weight,
                 z_min=config.camera.z_min,
+                use_pallas=use_pallas,
                 forced_pose=None if known_poses is None else known_poses[k],
             )
             new_poses.append(state.pose)

@@ -1,8 +1,8 @@
 """Mid-scan checkpoint and resume of the fusion state.
 
 A port of ``housescan_tpu/kinfu/scan_checkpoint.py`` with the same file:
-one compressed .npz holding the whole ``KinFuState`` (packed volume,
-persistent planes, poses, model maps, flags), the per-frame trajectory so
+one compressed .npz holding the whole ``KinFuState`` (the volume in
+either layout, packed int32 or float32, persistent planes, poses, model maps, flags), the per-frame trajectory so
 far and a JSON manifest with the schema version, the next frame index,
 the intrinsics and a structural fingerprint of the state layout. The
 fingerprint string is built from the numpy dtype names, so it is the same

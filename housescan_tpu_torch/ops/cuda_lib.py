@@ -36,7 +36,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "--fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles")
+KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6")
+# The kernels each fusion path of kinfu_step launches: the kernel path
+# (use_pallas=True) and the XLA path (use_pallas=False).
+KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles")
+XLA_PATH = ("bilateral", "solve6")
 
 launch_counts = {k: 0 for k in KERNELS}
 plain_counts = {k: 0 for k in KERNELS}
@@ -65,6 +69,8 @@ _SIGNATURES = {
     "hs_tsdf_free": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _F, _P],
     # cand, n_tiles, max_ct, params, out, h, w_pad, stream
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
+    # abp, out, damping, max_step, stream
+    "hs_solve6": [_P, _P, _F, _F, _P],
 }
 
 _lib = None

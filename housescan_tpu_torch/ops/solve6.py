@@ -1,24 +1,37 @@
-"""The damped 6x6 solve + twist exponential + pose compose (plain version).
+"""K2: the damped 6x6 solve + twist exponential + pose compose.
 
-Replaces the math of ``housescan_tpu/ops/solve6_pallas.py``
-(``_solve_twist_math``, the body of the K2 kernel). Only the math is on
-the fusion step's path: K3 inlines it as the CUDA device function
-``csrc/solve6.cuh``, which repeats the operations below one for one. The
-standalone K2 launch (the XLA ICP path and the sharded path) is not
-ported yet.
+Replaces ``housescan_tpu/ops/solve6_pallas.py:_kernel`` (via
+``solve_twist_compose``): iterated-Tikhonov null-space filter
+x = (A + lam I)^-1 A (A + lam I)^-1 b with lam = max(damping,
+null_threshold) * max|diag A| (unrolled Cholesky, the second solve reuses
+the factor), a non-finite and >1e3 guard that keeps the pose, a max-step
+clamp, Rodrigues via Taylor-series sin/cos (exact in float32 for
+|theta| <= 0.3), then pose @ increment.
 
-Iterated-Tikhonov null-space filter x = (A + lam I)^-1 A (A + lam I)^-1 b
-with lam = max(damping, null_threshold) * max|diag A| (unrolled Cholesky,
-the second solve reuses the factor), a non-finite and >1e3 guard that
-keeps the pose, a max-step clamp, Rodrigues via Taylor-series sin/cos
-(exact in float32 for |theta| <= 0.3), then pose @ increment.
+``solve_twist_math`` is the plain version, on lists of same-shape
+tensors. Its CUDA twin is the device function ``csrc/solve6.cuh``, which
+repeats the operations below one for one. K3 inlines it into its solve
+block; ``solve_twist_compose`` launches it standalone as K2
+(``csrc/solve6.cu``), once per Gauss-Newton iteration of the XLA ICP loop
+(``kinfu/icp.py``, ``use_pallas=False``). The reference's sharded path
+does not call K2: it solves with ``kinfu/icp._solve_increment``.
+
+Why CUDA and one thread: the work is ~700 dependent scalar flops on 58
+inputs (about 300 bytes moved), which takes ~1e-7 ms at the card's
+rates, far below a launch's latency; a scalar thread that reuses the
+device function already bit-exact with the plain version (``--fmad=false``)
+is the simplest kernel that is right. The result stays on the card: the
+host never reads it inside the step. Fusing it into the normal-equations
+reduction, as K3 does, would save the launch.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
+
+from housescan_tpu_torch.ops import cuda_lib
 
 
 def _sin_taylor(t):
@@ -150,3 +163,40 @@ def solve_twist_math(
             out.append(torch.where(ok, s_, p(i, j)))
     out.append(where(ok, nrm * fac, 0.0))
     return out
+
+
+def solve_twist_plain(pose: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      damping: float = 3e-4, max_step: float = 0.3
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's plain version on any device: (4, 4) pose, (6, 6) A, (6,) b ->
+    (new pose (4, 4), post-clamp step norm ())."""
+    f32 = torch.float32
+    dev = pose.device
+    out = solve_twist_math(
+        list(a.reshape(36).to(f32)), list(b.reshape(6).to(f32)), list(pose.reshape(16).to(f32)),
+        torch.tensor(damping, dtype=f32, device=dev), torch.tensor(max_step, dtype=f32, device=dev),
+    )
+    return torch.stack(out[:16]).reshape(4, 4), out[16]
+
+
+def solve_twist_compose(pose: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        damping: float = 3e-4, max_step: float = 0.3
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: (pose @ exp(filtered solve of (A, b)), step norm); the norm is
+    0 when the solve failed and the pose was kept. CUDA tensors launch
+    the kernel (one block of one thread on the current stream), CPU
+    tensors run ``solve_twist_plain``."""
+    if pose.device.type == "cpu":
+        cuda_lib.plain_counts["solve6"] += 1
+        return solve_twist_plain(pose, a, b, damping, max_step)
+    if a.numel() != 36 or b.numel() != 6 or pose.numel() != 16:
+        raise ValueError("solve_twist_compose: needs a (6, 6) A, a (6,) b and a (4, 4) pose")
+    abp = torch.cat([a.reshape(36), b.reshape(6), pose.reshape(16)]).to(torch.float32).contiguous()
+    out = torch.empty(17, dtype=torch.float32, device=pose.device)
+    cuda_lib.require_cuda("solve_twist_compose", abp, out)
+    lib = cuda_lib.load()
+    rc = lib.hs_solve6(abp.data_ptr(), out.data_ptr(), float(damping), float(max_step),
+                       cuda_lib.stream_ptr())
+    cuda_lib.check(rc, "hs_solve6")
+    cuda_lib.launch_counts["solve6"] += 1
+    return out[:16].reshape(4, 4), out[16]

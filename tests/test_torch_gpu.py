@@ -14,7 +14,9 @@ tsdf within one step on >= 99.9% of voxels, plane valid flags on >= 99.9%
 of sub-blocks, fields 1e-5 (both sum the moments in float64), field 11
 identical; K6 valid masks on >= 99.5% of pixels, rows 1e-5 where both hit;
 K5 bit-identical (the carve has no reduction whose order could differ),
-and so the split and unsplit integrates too.
+and so the split and unsplit integrates too; K2 within 2e-5 (the
+reference's bound; the same scalar operations, so 0 is expected), and
+on degenerate systems the pose exactly unchanged.
 """
 
 import numpy as np
@@ -31,6 +33,7 @@ from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import build_worklist
 from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
 from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda
+from housescan_tpu_torch.ops.solve6 import solve_twist_compose, solve_twist_plain
 from housescan_tpu_torch.ops.raycast_tiles import (
     _ray_params,
     build_tile_candidates,
@@ -171,7 +174,7 @@ def test_step_runs_through_every_kernel(cuda):
     st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device=cuda)
     st, traj = kinfu_run(st, frames[:3], QQVGA)
     torch.cuda.synchronize()
-    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNELS)
+    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNEL_PATH)
     assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
     cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
                       device="cpu")
@@ -229,3 +232,54 @@ def test_split_orbit_bit_identical_to_unsplit(cuda, scene):
     torch.cuda.synchronize()
     assert torch.equal(va.data, vb.data)
     assert torch.equal(pa, pb)
+
+
+@pytest.mark.gpu
+def test_solve_kernel_matches_plain(cuda):
+    """K2 on random SPD systems (the reference test's seed) and on the
+    degenerate ones: against its plain version on the card."""
+    rng = np.random.default_rng(3)
+    before = cuda_lib.launch_counts["solve6"]
+    for _ in range(10):
+        g = rng.normal(size=(50, 6))
+        a = torch.tensor((g.T @ g).astype(np.float32), device=cuda)
+        b = torch.tensor((rng.normal(size=6) * 0.1).astype(np.float32), device=cuda)
+        pose = torch.eye(4, device=cuda)
+        pose[3, :3] = torch.tensor(rng.normal(size=3).astype(np.float32), device=cuda)
+        kp, kn = solve_twist_compose(pose, a, b, damping=3e-4)
+        qp, qn = solve_twist_plain(pose, a, b, damping=3e-4)
+        torch.cuda.synchronize()
+        assert float((kp - qp).abs().max()) <= 2e-5
+        assert abs(float(kn) - float(qn)) <= 2e-5
+    assert cuda_lib.launch_counts["solve6"] == before + 10
+    pose = torch.eye(4, device=cuda)
+    pose[3, :3] = torch.tensor([0.3, -0.1, 1.7], device=cuda)
+    nan = float("nan")
+    for a, b in ((torch.zeros(6, 6), torch.ones(6)), (torch.full((6, 6), nan), torch.ones(6)),
+                 (torch.eye(6), torch.full((6,), nan))):
+        kp, kn = solve_twist_compose(pose, a.to(cuda), b.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(kp, pose)
+        assert float(kn) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_xla_step_on_card_matches_cpu(cuda):
+    """Three frames of the XLA path (use_pallas=False) on a 128^3 float32
+    volume on the card: K1 and K2 launched, no other kernel and no plain
+    version, and the poses match the CPU run of the same stream to 1e-3
+    (the step parity bound above; the reductions sum in another order)."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
+    cuda_lib.reset_counts()
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                    dtype=torch.float32, device=cuda)
+    st, traj = kinfu_run(st, frames[:3], QQVGA, use_pallas=False)
+    torch.cuda.synchronize()
+    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.XLA_PATH)
+    assert all(cuda_lib.launch_counts[k] == 0 for k in cuda_lib.KERNELS if k not in cuda_lib.XLA_PATH)
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
+    cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                     dtype=torch.float32, device="cpu")
+    cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA, use_pallas=False)
+    np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
+    assert float(st.model_maps[7].mean()) > 0.5

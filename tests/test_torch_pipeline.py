@@ -111,9 +111,11 @@ def test_tracking_closed_loop(stream):
     assert err < 0.020, f"closed-loop drift {err * 1000:.1f} mm over 6 frames"
     assert traj.shape == (7, 4, 4)
     assert bool(st.last_tracked) and int(st.last_corr) > 1000
-    # on the CPU every kernel wrapper took its plain version
-    assert all(cuda_lib.plain_counts[k] > 0 for k in cuda_lib.KERNELS)
+    # on the CPU every kernel wrapper of the kernel path took its plain
+    # version; the XLA path's solve (K2) did not run
+    assert all(cuda_lib.plain_counts[k] > 0 for k in cuda_lib.KERNEL_PATH)
     assert all(cuda_lib.launch_counts[k] == 0 for k in cuda_lib.KERNELS)
+    assert cuda_lib.plain_counts["solve6"] == 0
 
 
 def test_tracking_loss_drops_frame(stream):
@@ -138,8 +140,16 @@ def test_tracking_loss_drops_frame(stream):
 
 
 def test_step_rejects_untileable_volume(stream):
+    """The kernel path needs a volume that tiles into 128-voxel chunks
+    (the XLA path takes it: ``tests/test_torch_xla_loop.py``), and the
+    packed layout."""
+    _, frames = stream
+    st = kinfu_init(INTR, resolution=96, device="cpu")
     with pytest.raises(ValueError):
-        kinfu_init(INTR, resolution=96, device="cpu")
+        kinfu_step(st, frames[0], INTR, use_pallas=True)
+    st = kinfu_init(INTR, resolution=128, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError):
+        kinfu_step(st, frames[0], INTR, use_pallas=True)
 
 
 def test_entry_points_default_to_the_card():
@@ -147,8 +157,9 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU (read without a card, from the signatures)."""
     from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
     from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 
-    for fn in (kinfu_init, state_from_numpy, scan_to_room_dir, load_scan_state):
+    for fn in (kinfu_init, state_from_numpy, scan_to_room_dir, load_scan_state, tsdf_new):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
@@ -179,6 +190,7 @@ def test_port_imports_no_jax():
         "import housescan_tpu_torch.geometry.plane, housescan_tpu_torch.geometry.fitting\n"
         "import housescan_tpu_torch.kinfu.ransac, housescan_tpu_torch.kinfu.marching_cubes\n"
         "import housescan_tpu_torch.kinfu.scan_checkpoint, housescan_tpu_torch.kinfu.scan\n"
+        "import housescan_tpu_torch.kinfu.raycast, housescan_tpu_torch.ops.solve6\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'housescan_tpu.'))"
         " or m == 'housescan_tpu']\n"
         "assert not bad, bad\n"

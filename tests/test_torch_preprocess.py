@@ -144,7 +144,7 @@ def test_packed_volume_layout_bit_identical():
     np.testing.assert_array_equal(tsdf.unpack_t(torch.from_numpy(got)).numpy(),
                                   np.asarray(jtsdf.unpack_t(jnp.asarray(want))))
     np.testing.assert_array_equal(tsdf.unpack_w(torch.from_numpy(got)).numpy(), w)
-    tv = tsdf.tsdf_new(128, 3.0, 0.06)
+    tv = tsdf.tsdf_new(128, 3.0, 0.06, device="cpu")
     jv = jtsdf.tsdf_new(128, 3.0, 0.06, dtype=jnp.int32)
     np.testing.assert_array_equal(tv.data.numpy(), np.asarray(jv.data))
     for a, b in ((tv.origin, jv.origin), (tv.voxel_size, jv.voxel_size), (tv.trunc, jv.trunc)):

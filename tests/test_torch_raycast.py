@@ -46,7 +46,7 @@ def scene():
     half, boxes = furnished_room()
     poses = np.array(orbit_poses(2, radius=0.25, yaw_range=0.1, pitch=0.25))
     frames = np.array(render_depth_stream(JINTR, poses, half, boxes=boxes))
-    vol = tsdf_new(RES, 3.0, 0.06)
+    vol = tsdf_new(RES, 3.0, 0.06, device="cpu")
     planes = torch.zeros(planes_shape(RES))
     for d, p in zip(frames, poses):
         vol, planes = tsdf_integrate_stream(vol, planes, torch.from_numpy(d), torch.from_numpy(p), INTR)

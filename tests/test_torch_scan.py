@@ -498,9 +498,11 @@ def test_scan_with_known_poses_fuses_at_them(stream_file, tmp_path):
 
 
 def test_scan_refuses_untileable_volume(stream_file, tmp_path):
-    """The scan needs a volume that tiles into 128-voxel chunks (the
-    reference's CPU-only XLA branch is not ported)."""
+    """The kernel path needs a volume that tiles into 128-voxel chunks,
+    so a scan that asks for it at 96^3 is refused (by default such a scan
+    takes the XLA path: ``tests/test_torch_xla_loop.py``)."""
     path, _ = stream_file
     cfg = Config(tsdf=TsdfConfig(resolution=96, size_m=3.0, trunc_dist=0.06))
     with pytest.raises(ValueError):
-        scan_to_room_dir(load_stream(path), tmp_path / "r", config=cfg, device="cpu")
+        scan_to_room_dir(load_stream(path), tmp_path / "r", config=cfg, use_pallas=True,
+                         device="cpu")
