@@ -8,64 +8,86 @@ Run from the repository root with one CUDA device visible:
 It uses ``housescan_tpu_torch`` only (no JAX) and runs the workload of the
 reference bench: the synthetic furnished room, a 21-pose orbit
 (``orbit_poses(21, radius=0.25, yaw_range=0.4, pitch=0.25)``) and 640x480
-depth, on both fusion paths: the kernel path on a 512^3 int16-packed
-volume over 3 m, and the XLA path (``use_pallas=False``) on a 480^3
+depth, on three paths: the kernel path on a 512^3 volume over 3 m in both
+layouts (int16-packed int32, and the float32 (2, X, Y, Z) array, the
+reference's default), the XLA path (``use_pallas=False``) on a 480^3
 float32 volume over 3 m, a resolution that does not tile into 128-voxel
-chunks. Phases, each fatal on failure:
+chunks, and the dense path (K8 then ``raycast_pallas``) on a 512^3
+float32 volume. Phases, each fatal on failure:
 
   1. a CUDA device must be present;
   2. print the card's name and power limit (nvidia-smi);
   3. build the kernel library from ``housescan_tpu_torch/csrc`` (one nvcc
      per source, in parallel) and print the build time and the ptxas
      register/spill lines;
-  4. run the fusion orbit once (warm), then compare each kernel (K1
-     bilateral, K3 ICP level, K4 stream integrate, K5 free carve, K6 plane
-     raycast) with its plain PyTorch version on the card at the shapes the
-     main path gives it; K5 on a free list of at least 16 superblocks
-     (the state after frame 20, else after frame 0);
+  4. box-512 (packed): run the fusion orbit once (warm), then compare each
+     kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
+     carve, K6 plane raycast) with its plain PyTorch version on the card
+     at the shapes the main path gives it; K5 on a free list of at least
+     16 superblocks (the state after frame 20, else after frame 0);
   5. integrate the orbit at its poses with and without the free split:
      the volumes and planes must be bit-identical;
   6. run the fusion orbit again from a fresh state, timed on the host
      clock (frames 1..20 after frame 0, ending in a synchronize), gate the
      final pose error at the reference bench's 5 mm budget, and require
-     every kernel to have launched in it and no plain version to have run;
-     print how often one more step makes the host wait on the card;
-  7. the scan at full width: record the 21 frames, load them, and run
-     ``scan_to_room_dir(config=Config(), write_mesh=True)`` into
-     ``build/chip_smoke/scan_room``; the kernel launch counts of this run
-     must show every kernel of the kernel path and no plain version; gate
-     on no dropped frame, every reference-layout file present and
-     parsing, >= 2 planes and a non-empty mesh inside the volume; print
-     the pose error and the host time of each phase (fusion, surface
-     points, RANSAC, marching tetrahedra, writes), then RANSAC once more
-     on the same cloud, split into the detection on the card and the
-     host's hulls;
-  8. xla-480: the orbit on the XLA path, a warm pass, then K2 (the
+     every kernel of the path to have launched in it and no plain version
+     to have run; one more step must make the host wait on the card
+     nowhere (PyTorch's sync debug mode);
+  7. box-512-f32: phases 4-6 on the float32 volume: a warm pass, K4 and K5
+     against their plain versions on the float layout, split against
+     unsplit bit-identical, K7 as the oracle of K4's persistent planes
+     (a fresh extraction after a step equals them on every listed chunk:
+     valid flags identical, fields but 11 within 1e-5 where valid), then
+     the timed pass with phase 6's gates;
+  8. the scan at full width: record the 21 frames, load them, and run
+     ``scan_to_room_dir(config=Config(), write_mesh=True)`` (the kernel
+     path, fusing into float32) into ``build/chip_smoke/scan_room``; the
+     kernel launch counts of this run must show every kernel of the kernel
+     path and no plain version; gate on no dropped frame, every
+     reference-layout file present and parsing, >= 2 planes and a
+     non-empty mesh inside the volume; print the pose error and the host
+     time of each phase (fusion, surface points, RANSAC, marching
+     tetrahedra, writes), then RANSAC once more on the same cloud, split
+     into the detection on the card and the host's hulls;
+  9. xla-480: the orbit on the XLA path, a warm pass, then K2 (the
      standalone solve) against its plain version on the card on the
      (A, b, pose) of real iterations of that orbit and on degenerate
-     systems, one more step that must not make the host wait on the card
-     (PyTorch's sync debug mode), then a timed pass with launch counts:
-     pose error <= 5 mm, 20/20 tracked, model-map coverage >= 0.5, K1 and
-     K2 launched, K3-K6 not, no plain version; print ms/frame, fps and
-     peak memory;
-  9. scan-480: ``scan_to_room_dir`` at ``Config()`` with a 480^3 volume,
+     systems, one more step that must not make the host wait on the card,
+     then a timed pass with launch counts: pose error <= 5 mm, 20/20
+     tracked, model-map coverage >= 0.5, K1 and K2 launched, K3-K8 not, no
+     plain version; print ms/frame, fps and peak memory;
+ 10. scan-480: ``scan_to_room_dir`` at ``Config()`` with a 480^3 volume,
      which takes the XLA path unasked, into
-     ``build/chip_smoke/scan_room_480``, with phase 7's gates and launch
+     ``build/chip_smoke/scan_room_480``, with phase 8's gates and launch
      counts showing K1 and K2 and no plain version;
- 10. time each kernel and its plain version with CUDA events, beside its
+ 11. dense-512: K8 (``tsdf_integrate_with_planes``) fuses the 21 frames at
+     their true poses into a fresh float32 volume, then ``raycast_pallas``
+     (K7, K6) renders the last and the first pose; K8, K7 and K6 launched,
+     no other kernel and no plain version; the reference's depth-quality
+     gates at each pose (coverage > 0.55, median |depth - true depth| <
+     0.5 mm on jointly valid pixels, > 10 mm on fewer than 4%); then K8
+     against its plain version (frame 1 on a volume carried from frame 0:
+     volume, planes and chunk classes), K7 against its plain version on
+     the fused volume, and K8 against K4 from fresh volumes: the twin of
+     the reference's test (128^3, 160x120: weights agree on >= 99.9% of
+     voxels, the tsdf's 99th percentile |diff| < 1e-5 on jointly observed
+     ones) and the orbit's frame 0 at full width (p99 < 1e-4, derived in
+     ``run_dense``);
+ 12. time each kernel and its plain version with CUDA events, beside its
      bound: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) for this run's
      inputs (H100 SXM data sheet; each input byte read once, each output
-     byte written once);
- 11. profile three fusion steps of each path: device kernel time per step
-     against the timed pass's frame time (the device's busy share), the
-     launches per step, each stage's device and host time a step, the top
-     kernels, and the full tables in ``build/chip_smoke/profile.txt`` and
-     ``profile_xla.txt``.
+     byte written once); K4 and K5 on both layouts;
+ 13. profile three fusion steps of the kernel path (packed) and the XLA
+     path: device kernel time per step against the timed pass's frame
+     time (the device's busy share), the launches per step, each stage's
+     device and host time a step, the top kernels, and the full tables in
+     ``build/chip_smoke/profile.txt`` and ``profile_xla.txt``.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
-path's run, the scan's for the kernel path, the timed xla-480 pass for
-K2); the last line is ``{"ok": true, "device": {...}}``.
+path's run: the scan's for the kernel path, the timed xla-480 pass for
+K2, the dense-512 run for K7 and K8); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import json
@@ -90,11 +112,21 @@ KERNELS = {
     "tsdf_free": ("housescan_tpu_torch/csrc/tsdf_free.cu", "housescan_tpu/ops/tsdf_stream.py:814"),
     "raycast_tiles": ("housescan_tpu_torch/csrc/raycast_tiles.cu", "housescan_tpu/ops/raycast_tiles.py:337"),
     "solve6": ("housescan_tpu_torch/csrc/solve6.cu", "housescan_tpu/ops/solve6_pallas.py:174"),
+    "planes_extract": ("housescan_tpu_torch/csrc/planes_extract.cu",
+                       "housescan_tpu/ops/planes_pallas.py:372"),
+    "tsdf_dense": ("housescan_tpu_torch/csrc/tsdf_dense.cu", "housescan_tpu/ops/tsdf_pallas.py:53"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-CHUNK_BYTES = 8 * 8 * 128 * 4  # one (8, 8, 128) chunk of packed int32 voxels
+CHUNK_VOXELS = 8 * 8 * 128
 TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
+LAYOUTS = {torch.int32: "packed", torch.float32: "float32"}
+
+
+def chunk_bytes(data) -> int:
+    """Bytes of one (8, 8, 128) chunk of the volume's layout: 4 a voxel
+    packed, 8 float32."""
+    return CHUNK_VOXELS * (4 if data.dim() == 3 else 8)
 
 
 def fail(msg: str) -> None:
@@ -177,7 +209,7 @@ def free_inputs(vol, planes, depth, pose, intr):
     return wl, fwl, params, n_sb, len(members)
 
 
-def compare_kernels(st, st0, intr, depth, depth1, pose1, res):
+def compare_kernels(st, st0, intr, depth, depth1, pose1):
     """Each kernel against its plain version at the main path's shapes,
     from the state after the warm orbit (K5: that state, else the state
     after frame 0 with frame 1). Returns per-kernel max abs error, the
@@ -189,11 +221,6 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, res):
     from housescan_tpu_torch.ops.raycast_tiles import (
         _ray_params, build_tile_candidates, launch_raycast_kernel, raycast_tiles_plain,
     )
-    from housescan_tpu_torch.ops.tsdf_stream import (
-        FIELD_SAT, build_depth_mips, free_carve_plain, integrate_plain, launch_free_kernel,
-        launch_stream_kernel,
-    )
-
     errs, calls, bounds = {}, {}, {}
     h, w = intr.height, intr.width
 
@@ -228,73 +255,10 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, res):
     )
     bounds["icp_level"] = bound(packed.numel() * 4, 120 * 10 * packed.shape[1] * packed.shape[2])
 
-    # K4 on copies of the volume, on the main list left by the split: each
-    # listed chunk read and written once plus its planes tile, the mips
-    # read once; ~60 float ops a voxel
-    vol, planes, pose = st.volume, st.planes, st.pose
-    wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth, pose, intr)
-    mips = build_depth_mips(depth)
-    kd, kpl = vol.data.clone(), planes.clone()
-    launch_stream_kernel(kd, kpl, wl.desc, wl.count, mips, params)
-    qd, qpl = vol.data.clone(), planes.clone()
-    integrate_plain(qd, qpl, wl.desc, wl.count, mips, params, res // 8, res // 128)
-    torch.cuda.synchronize()
-    n_listed = int(wl.count[0])
-    if not torch.equal(kd & 0xFFFF, qd & 0xFFFF):
-        fail("K4 weights differ from the plain version")
-    lsb = ((kd >> 16) - (qd >> 16)).abs()
-    errs["tsdf_stream"] = float(lsb.max()) / 32767.0
-    if float((lsb <= 1).float().mean()) < 0.999:
-        fail("K4 packed tsdf differs by more than one step on > 0.1% of voxels")
-    kv, qv = kpl[:, :, :, 4] > 0.5, qpl[:, :, :, 4] > 0.5
-    if float((kv == qv).float().mean()) < 0.999:
-        fail("K4 plane valid flags differ")
-    both = (kv & qv)[:, :, :, None, :].expand_as(kpl)
-    fdiff = float((kpl - qpl)[both].abs().max()) if bool(both.any()) else 0.0
-    if fdiff > 1e-5 or not torch.equal(kpl[:, :, :, FIELD_SAT], qpl[:, :, :, FIELD_SAT]):
-        fail(f"K4 plane fields differ by {fdiff}")
-    print(f"# K4 compare: {n_listed} listed chunks (main list after the split), "
-          f"plane field max diff {fdiff}", flush=True)
-    scratch = vol.data.clone(), planes.clone()
-    calls["tsdf_stream"] = (
-        lambda: launch_stream_kernel(scratch[0], scratch[1], wl.desc, wl.count, mips, params),
-        lambda: integrate_plain(scratch[0], scratch[1], wl.desc, wl.count, mips, params,
-                                res // 8, res // 128),
-    )
-    mip_bytes = sum(m.numel() for m in mips) * 4
-    bounds["tsdf_stream"] = bound(n_listed * (2 * CHUNK_BYTES + TILE_BYTES) + mip_bytes,
-                                  60 * 8192 * n_listed)
-    del kd, qd, kpl, qpl
-
-    # K5 on copies, on a free list of >= 16 superblocks: each member chunk
-    # read and written once plus its planes tile; ~30 float ops a voxel
-    src = "after frame 20"
-    if n_sb < 16:
-        vol, planes, pose = st0.volume, st0.planes, pose1
-        wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth1, pose, intr)
-        src = "after frame 0, frame 1"
-    if n_sb == 0:
-        fail("K5 comparison: the free work list is empty")
-    kd, kpl = vol.data.clone(), planes.clone()
-    launch_free_kernel(kd, kpl, fwl, params)
-    qd, qpl = vol.data.clone(), planes.clone()
-    free_carve_plain(qd, qpl, fwl, params)
-    torch.cuda.synchronize()
-    changed = int((kd != vol.data).sum())
-    if not torch.equal(kd, qd) or not torch.equal(kpl, qpl):
-        fail("K5 free carve differs from its plain version")
-    errs["tsdf_free"] = 0.0
-    print(f"# K5 compare ({src}): {n_sb} listed superblocks, {n_members} member chunks, "
-          f"{changed} voxels carved, bit-identical", flush=True)
-    if n_sb < 16:
-        print(f"# K5 compare: only {n_sb} superblocks listed (fewer than 16)", flush=True)
-    scratch5 = vol.data.clone(), planes.clone()
-    calls["tsdf_free"] = (
-        lambda: launch_free_kernel(scratch5[0], scratch5[1], fwl, params),
-        lambda: free_carve_plain(scratch5[0], scratch5[1], fwl, params),
-    )
-    bounds["tsdf_free"] = bound(n_members * (2 * CHUNK_BYTES + TILE_BYTES), 30 * 8192 * n_members)
-    del kd, qd, kpl, qpl
+    errs["tsdf_stream"], calls["tsdf_stream"], bounds["tsdf_stream"], n_listed = \
+        compare_stream(st, depth, intr)
+    errs["tsdf_free"], calls["tsdf_free"], bounds["tsdf_free"], n_sb, n_members = \
+        compare_free(st, st0, depth, depth1, pose1, intr)
 
     # K6 on the state's planes at its pose: the candidates read once and
     # the 9 output rows written once; ~17 float ops per pixel and usable
@@ -319,7 +283,106 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, res):
     return errs, calls, bounds, dict(n_listed=n_listed, n_sb=n_sb, n_members=n_members)
 
 
-def split_orbit_identical(intr, poses, frames, device):
+def _tw(data):
+    """(tsdf, weight) of either layout as float32 tensors."""
+    if data.dim() == 3:
+        return (data >> 16).to(torch.float32) / 32767.0, (data & 0xFFFF).to(torch.float32)
+    return data[0], data[1]
+
+
+def compare_stream(st, depth, intr):
+    """K4 against its plain version on copies of the state's volume (either
+    layout), on the main list left by the split: weights identical, the
+    packed tsdf within one step on >= 99.9% of voxels (float32: 1e-6),
+    plane valid flags on >= 99.9% of sub-blocks, fields 1e-5 where both
+    are valid, field 11 identical. Returns (max abs tsdf error, timing
+    calls, bound, listed chunks). Bound: each listed chunk read and
+    written once plus its planes tile, the mips read once; ~60 float ops
+    a voxel."""
+    from housescan_tpu_torch.ops.tsdf_stream import (
+        FIELD_SAT, build_depth_mips, integrate_plain, launch_stream_kernel,
+    )
+
+    vol, planes, pose = st.volume, st.planes, st.pose
+    res = vol.dims[0]
+    tag = LAYOUTS[vol.data.dtype]
+    wl, _, params, _, _ = free_inputs(vol, planes, depth, pose, intr)
+    mips = build_depth_mips(depth)
+    kd, kpl = vol.data.clone(), planes.clone()
+    launch_stream_kernel(kd, kpl, wl.desc, wl.count, mips, params)
+    qd, qpl = vol.data.clone(), planes.clone()
+    integrate_plain(qd, qpl, wl.desc, wl.count, mips, params, res // 8, res // 128)
+    torch.cuda.synchronize()
+    n_listed = int(wl.count[0])
+    (kt, kw), (qt, qw) = _tw(kd), _tw(qd)
+    if not torch.equal(kw, qw):
+        fail(f"K4 ({tag}) weights differ from the plain version")
+    err = float((kt - qt).abs().max())
+    close = (kt - qt).abs() <= (1.0 / 32767.0 if kd.dim() == 3 else 1e-6) * 1.0001
+    if float(close.float().mean()) < 0.999:
+        fail(f"K4 ({tag}) tsdf differs by more than its bound on > 0.1% of voxels")
+    kv, qv = kpl[:, :, :, 4] > 0.5, qpl[:, :, :, 4] > 0.5
+    if float((kv == qv).float().mean()) < 0.999:
+        fail(f"K4 ({tag}) plane valid flags differ")
+    both = (kv & qv)[:, :, :, None, :].expand_as(kpl)
+    fdiff = float((kpl - qpl)[both].abs().max()) if bool(both.any()) else 0.0
+    if fdiff > 1e-5 or not torch.equal(kpl[:, :, :, FIELD_SAT], qpl[:, :, :, FIELD_SAT]):
+        fail(f"K4 ({tag}) plane fields differ by {fdiff}")
+    print(f"# K4 compare ({tag}): {n_listed} listed chunks (main list after the split), "
+          f"tsdf max abs err {err}, plane field max diff {fdiff}", flush=True)
+    del kd, qd, kpl, qpl
+    scratch = vol.data.clone(), planes.clone()
+    calls = (
+        lambda: launch_stream_kernel(scratch[0], scratch[1], wl.desc, wl.count, mips, params),
+        lambda: integrate_plain(scratch[0], scratch[1], wl.desc, wl.count, mips, params,
+                                res // 8, res // 128),
+    )
+    mip_bytes = sum(m.numel() for m in mips) * 4
+    return err, calls, bound(n_listed * (2 * chunk_bytes(vol.data) + TILE_BYTES) + mip_bytes,
+                             60 * CHUNK_VOXELS * n_listed), n_listed
+
+
+def compare_free(st, st0, depth, depth1, pose1, intr):
+    """K5 against its plain version on copies, on a free list of >= 16
+    superblocks (the state after frame 20, else after frame 0 with frame
+    1): bit-identical. Returns (0.0, timing calls, bound, listed
+    superblocks, member chunks). Bound: each member chunk read and written
+    once plus its planes tile; ~30 float ops a voxel."""
+    from housescan_tpu_torch.ops.tsdf_stream import free_carve_plain, launch_free_kernel
+
+    vol, planes, pose = st.volume, st.planes, st.pose
+    tag = LAYOUTS[vol.data.dtype]
+    wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth, pose, intr)
+    src = "after frame 20"
+    if n_sb < 16:
+        vol, planes, pose = st0.volume, st0.planes, pose1
+        wl, fwl, params, n_sb, n_members = free_inputs(vol, planes, depth1, pose, intr)
+        src = "after frame 0, frame 1"
+    if n_sb == 0:
+        fail(f"K5 ({tag}) comparison: the free work list is empty")
+    kd, kpl = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kpl, fwl, params)
+    qd, qpl = vol.data.clone(), planes.clone()
+    free_carve_plain(qd, qpl, fwl, params)
+    torch.cuda.synchronize()
+    changed = int((_tw(kd)[1] != _tw(vol.data)[1]).sum())
+    if not torch.equal(kd, qd) or not torch.equal(kpl, qpl):
+        fail(f"K5 ({tag}) free carve differs from its plain version")
+    print(f"# K5 compare ({tag}, {src}): {n_sb} listed superblocks, {n_members} member chunks, "
+          f"{changed} voxel weights changed, bit-identical", flush=True)
+    if n_sb < 16:
+        print(f"# K5 compare: only {n_sb} superblocks listed (fewer than 16)", flush=True)
+    del kd, qd, kpl, qpl
+    scratch = vol.data.clone(), planes.clone()
+    calls = (
+        lambda: launch_free_kernel(scratch[0], scratch[1], fwl, params),
+        lambda: free_carve_plain(scratch[0], scratch[1], fwl, params),
+    )
+    return 0.0, calls, bound(n_members * (2 * chunk_bytes(vol.data) + TILE_BYTES),
+                             30 * CHUNK_VOXELS * n_members), n_sb, n_members
+
+
+def split_orbit_identical(intr, poses, frames, device, dtype):
     """The orbit's frames integrated at its poses with and without the
     free split: final volumes and planes must be bit-identical."""
     from housescan_tpu_torch.kinfu.tsdf import tsdf_new
@@ -327,7 +390,7 @@ def split_orbit_identical(intr, poses, frames, device):
 
     out = []
     for split in (True, False):
-        vol = tsdf_new(RES, 3.0, 0.03, device=device)
+        vol = tsdf_new(RES, 3.0, 0.03, dtype=dtype, device=device)
         planes = torch.zeros(planes_shape(RES), device=device)
         for d, p in zip(frames, poses):
             tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(device), intr,
@@ -335,7 +398,7 @@ def split_orbit_identical(intr, poses, frames, device):
         out.append((vol.data, planes))
     torch.cuda.synchronize()
     same = torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
-    observed = int(((out[0][0] & 0xFFFF) > 0).sum())
+    observed = int((_tw(out[0][0])[1] > 0).sum())
     return same, observed
 
 
@@ -361,8 +424,8 @@ def run_scan(intr, poses, frames, card, res=RES):
     from housescan_tpu_torch.io.pcd import load_pcd
     from housescan_tpu_torch.io.planes_txt import load_planes_txt
     from housescan_tpu_torch.io.ply import load_ply
+    from housescan_tpu_torch.kinfu import scan
     from housescan_tpu_torch.kinfu.pipeline import pallas_supported
-    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
     from housescan_tpu_torch.ops import cuda_lib
 
     room = os.path.join(OUT, "scan_room" if res == RES else f"scan_room_{res}")
@@ -373,11 +436,25 @@ def run_scan(intr, poses, frames, card, res=RES):
     cfg = replace(cfg, tsdf=replace(cfg.tsdf, resolution=res))
     kernel_path = pallas_supported(res)
     timings = {}
+    # the layout the scan fuses into, read from the state it creates
+    init, layouts = scan.kinfu_init, []
+
+    def recording_init(*args, **kwargs):
+        state = init(*args, **kwargs)
+        layouts.append((state.volume.data.dtype, tuple(state.volume.data.shape)))
+        return state
+
+    scan.kinfu_init = recording_init
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
-    scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True,
-                     timings=timings)
+    try:
+        scan.scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True,
+                              timings=timings)
+    finally:
+        scan.kinfu_init = init
     total = time.perf_counter() - t0
+    if layouts != [(torch.float32, (2, res, res, res))]:
+        fail(f"the scan at {res}^3 fused into {layouts}, not the float32 volume")
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     tag = "kernel path" if kernel_path else "XLA path"
     print(f"# scan {res}^3 ({tag}) launches {json.dumps(launches)} plain {json.dumps(plain)}",
@@ -626,6 +703,216 @@ def run_xla(intr, poses, frames, device, card):
     return dict(err=err, calls=calls, bound=k2_bound, launches=launches, secs=secs)
 
 
+def timed_orbit(intr, poses, frames, device, card, dtype, warm_s):
+    """The timed kernel-path pass of phases 6 and 7 on a fresh volume of
+    ``dtype``, with its gates and launch counts; then one more step, which
+    must not make the host wait on the card. Returns (state, seconds)."""
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_step
+    from housescan_tpu_torch.ops import cuda_lib
+
+    tag = f"box-{RES}" + ("" if dtype == torch.int32 else "-f32")
+    cuda_lib.reset_counts()
+    st, secs, tracked = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1000.0
+    maps = st.model_maps
+    cover = float(maps[7].mean())
+    print(f"# {tag} {intr.width}x{intr.height} ({LAYOUTS[dtype]} volume "
+          f"{tuple(st.volume.data.shape)}): {N_FRAMES} frames in {secs:.4f} s = "
+          f"{secs / N_FRAMES * 1000:.3f} ms/frame = "
+          f"{N_FRAMES / secs:.2f} fps (warm pass {warm_s:.4f} s); pose error {err_mm:.3f} mm; "
+          f"last rmse {float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; "
+          f"tracked {sum(tracked)}/{len(tracked)}; coverage {cover:.3f} [{card}]", flush=True)
+    print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    if st.volume.data.dtype != dtype:
+        fail(f"{tag} did not fuse into the {LAYOUTS[dtype]} volume")
+    if err_mm > POSE_BUDGET_MM:
+        fail(f"{tag} pose error {err_mm:.3f} mm exceeds {POSE_BUDGET_MM} mm")
+    if not all(tracked):
+        fail(f"a frame of the {tag} orbit was dropped")
+    if tuple(maps.shape) != (8, intr.height, intr.width) or not bool(torch.isfinite(maps).all()):
+        fail(f"{tag} model maps malformed")
+    if cover < 0.5:
+        fail(f"{tag} model maps cover only {cover:.3f} of the image")
+    check_counts(tag, launches, plain, cuda_lib.KERNEL_PATH)
+    _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr))
+    print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
+    if syncs:
+        fail(f"the {tag} step made the host wait on the card at {syncs}")
+    return st, secs
+
+
+def k7_oracle(st, depth, intr):
+    """K7 as the oracle of K4's persistent planes (the reference's
+    test_planes_match_standalone_extraction): one more integrate of
+    ``depth`` at the state's pose on copies of its volume and planes, then
+    a fresh extraction (K7) over the result. On every chunk of the unsplit
+    work list the valid flags are identical and every field but 11 (K4's
+    flags) agrees within 1e-5 where valid. Returns (max diff, listed
+    chunks, valid sub-blocks)."""
+    from housescan_tpu_torch.ops.chunk_select import build_worklist
+    from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
+    from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, N_QUARTERS, tsdf_integrate_stream
+
+    vol = st.volume._replace(data=st.volume.data.clone())
+    planes = st.planes.clone()
+    sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+    wl = build_worklist(depth, st.pose, intr, vol.dims, vol.voxel_size, vol.origin, vol.trunc,
+                        sat_quarters=sat)
+    tsdf_integrate_stream(vol, planes, depth, st.pose, intr)
+    want = extract_subblock_planes(vol)
+    n = int(wl.count[0])
+    d = wl.desc[:n].long()
+    got, want = planes[d[:, 0], d[:, 1], d[:, 2]], want[d[:, 0], d[:, 1], d[:, 2]]
+    gv, wv = got[:, 4] > 0.5, want[:, 4] > 0.5
+    if not torch.equal(gv, wv):
+        fail(f"K7 oracle: valid flags differ on {int((gv != wv).sum())} sub-blocks")
+    keep = [f for f in range(16) if f != FIELD_SAT]
+    m = wv[:, None, :].expand(n, len(keep), 16)
+    diff = float((got[:, keep] - want[:, keep]).abs()[m].max()) if bool(wv.any()) else 0.0
+    if diff > 1e-5 or int(wv.sum()) < 100:
+        fail(f"K7 oracle: fields differ by {diff} ({int(wv.sum())} valid sub-blocks)")
+    return diff, n, int(wv.sum())
+
+
+def run_dense(intr, poses, frames, device, card):
+    """Phase 11, dense-512: path (B) with its gates, then K8 and K7 against
+    their plain versions and K8 against K4. Returns the two kernels'
+    errors, timing calls, bounds and launches."""
+    from housescan_tpu_torch.kinfu.camera import Intrinsics
+    from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.ops.planes_cuda import (
+        _extract_params, extract_planes_plain, launch_extract_kernel,
+    )
+    from housescan_tpu_torch.ops.raycast_planes import raycast_pallas
+    from housescan_tpu_torch.ops.tsdf_cuda import (
+        CLS_SKIP, dense_inputs, dense_integrate_plain, launch_dense_kernel,
+        tsdf_integrate_with_planes,
+    )
+    from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+
+    pose_t = [torch.from_numpy(p).to(device) for p in poses]
+    tag = f"dense-{RES}"
+
+    def fresh():
+        return tsdf_new(RES, 3.0, 0.03, dtype=torch.float32, device=device)
+
+    # the path: K8 over the 21 frames at their true poses, then model maps
+    cuda_lib.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = fresh()
+    for d, p in zip(frames, pose_t):
+        vol, _ = tsdf_integrate_with_planes(vol, d, p, intr)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    maps = {k: raycast_pallas(vol, pose_t[k], intr) for k in (N_FRAMES, 0)}
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    print(f"# {tag}: {N_FRAMES + 1} frames fused by K8 in {fuse_s:.4f} s = "
+          f"{fuse_s / (N_FRAMES + 1) * 1000:.3f} ms/frame (host clock, first call included) "
+          f"[{card}]", flush=True)
+    print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    check_counts(tag, launches, plain, cuda_lib.DENSE_PATH)
+    for k, m in maps.items():
+        valid = m[7] > 0.5
+        cover = float(valid.float().mean())
+        both = valid & (frames[k] > 0)
+        err = (m[0] - frames[k]).abs()[both]
+        med, tail = float(err.median()), float((err > 0.01).float().mean())
+        print(f"# {tag} raycast_pallas at pose {k}: coverage {cover:.4f}, median |depth - true| "
+              f"{med * 1000:.5f} mm on {int(both.sum())} pixels, > 10 mm on {tail * 100:.3f}%",
+              flush=True)
+        if not bool(torch.isfinite(m).all()) or cover <= 0.55 or med >= 0.0005 or tail >= 0.04:
+            fail(f"{tag} depth quality at pose {k}: coverage {cover}, median {med}, tail {tail}")
+
+    # K7 against its plain version on the fused volume: bit-identical
+    # expected (both sum the moments in float64 and round once); bound
+    # 1e-5 on every field, valid flags identical
+    params7 = _extract_params(vol, 6.0, RES // 8)
+    k7 = launch_extract_kernel(vol.data, params7)
+    q7 = extract_planes_plain(vol.data, params7)
+    torch.cuda.synchronize()
+    err7 = float((k7 - q7).abs().max())
+    n_valid = int((q7[:, :, :, 4] > 0.5).sum())
+    if err7 > 1e-5 or not torch.equal(k7[:, :, :, 4], q7[:, :, :, 4]) or n_valid < 1000:
+        fail(f"K7 differs from its plain version by {err7} ({n_valid} valid sub-blocks)")
+    print(f"# K7 compare (the fused {tag} volume): {n_valid} valid sub-blocks, max abs err "
+          f"{err7}", flush=True)
+    k7_calls = (lambda: launch_extract_kernel(vol.data, params7),
+                lambda: extract_planes_plain(vol.data, params7))
+    # the volume's voxels read once (8 bytes), the planes written; ~30
+    # float ops a voxel (crossing tests, moment terms)
+    k7_bound = bound(8 * RES ** 3 + k7.numel() * 4, 30 * RES ** 3)
+    del k7, q7, maps
+
+    # K8 against its plain version: frame 1 on a volume carried from frame
+    # 0; bit-identical expected (--fmad=false, the same operation order)
+    v0 = fresh()
+    tsdf_integrate_with_planes(v0, frames[0], pose_t[0], intr)
+    mips, params = dense_inputs(v0, frames[1], pose_t[1], intr)
+    kd = v0.data.clone()
+    kc, kp = launch_dense_kernel(kd, mips, params)
+    qd = v0.data.clone()
+    qc, qp = dense_integrate_plain(qd, mips, params)
+    torch.cuda.synchronize()
+    err8 = max(float((kd - qd).abs().max()), float((kp - qp).abs().max()))
+    if not torch.equal(kc, qc) or not torch.equal(kd[1], qd[1]) or err8 > 1e-5:
+        fail(f"K8 differs from its plain version: classes equal {torch.equal(kc, qc)}, "
+             f"weights equal {torch.equal(kd[1], qd[1])}, max abs err {err8}")
+    n_visited = int((kc != CLS_SKIP).sum())
+    print(f"# K8 compare (frame 1 on frame 0): {n_visited} of {kc.numel()} chunks visited "
+          f"({int((kc == 1).sum())} FREE), max abs err {err8}", flush=True)
+    del kd, qd
+    scratch = v0.data
+    k8_calls = (lambda: launch_dense_kernel(scratch, mips, params),
+                lambda: dense_integrate_plain(scratch, mips, params))
+    # every voxel read once by the column fit (8 bytes), the visited chunks
+    # written once, the frame read, the planes written; ~30 float ops a
+    # voxel for the fit and ~60 a visited voxel for the integrate
+    k8_bound = bound(8 * RES ** 3 + 8 * CHUNK_VOXELS * n_visited + intr.width * intr.height * 4
+                     + kp.numel() * 4, 30 * RES ** 3 + 60 * CHUNK_VOXELS * n_visited)
+
+    # K8 against K4 on frame 0 from fresh volumes. The reference's
+    # test_matches_dense_pallas_kernel (128^3, 0.06 m truncation, 160x120)
+    # holds them to weights on >= 99.9% of voxels and a tsdf p99 |diff| <
+    # 1e-5; its twin runs on the card at that configuration. At full width
+    # (0.03 m truncation) the same depth differences count double in tsdf
+    # units, and K4's 1/256 snap of u, its all-valid shortcut and its
+    # edge-replicated padding (K8 renormalises, snaps nothing and pads with
+    # zeros) move the bilinear depth by a few ulps (~1e-6 m at 2 m, 3e-5
+    # of the truncation): gated at 1e-4.
+    half, boxes = furnished_room()
+    small = Intrinsics(160, 120, 131.25, 131.25, 79.5, 59.5)
+    twin_poses = orbit_poses(2, radius=0.25, yaw_range=0.05, pitch=0.25)
+    twin_depth = render_depth_stream(small, twin_poses, half, boxes, device=device)[0]
+    for what, res, trunc, cam, depth0, pose0, limit in (
+            ("the reference's test, 128^3", 128, 0.06, small, twin_depth,
+             torch.from_numpy(twin_poses[0]).to(device), 1e-5),
+            (f"{RES}^3, the orbit's frame 0", RES, 0.03, intr, frames[0], pose_t[0], 1e-4)):
+        va = tsdf_new(res, 3.0, trunc, dtype=torch.float32, device=device)
+        vb = tsdf_new(res, 3.0, trunc, dtype=torch.float32, device=device)
+        tsdf_integrate_with_planes(va, depth0, pose0, cam)
+        tsdf_integrate_stream(vb, torch.zeros(planes_shape(res), device=device), depth0, pose0,
+                              cam)
+        agree = float((va.data[1] == vb.data[1]).float().mean())
+        both = (va.data[1] > 0) & (vb.data[1] > 0)
+        diff = (va.data[0] - vb.data[0]).abs()[both]
+        p99 = float(diff.kthvalue(max(1, int(0.99 * diff.numel()))).values)
+        print(f"# K8 vs K4 ({what}, fresh volumes): weights agree on {agree * 100:.4f}% of "
+              f"voxels, tsdf p99 |diff| {p99:.3e} on {diff.numel()} jointly observed voxels "
+              f"(bound {limit:g})", flush=True)
+        if agree < 0.999 or p99 >= limit:
+            fail(f"K8 and K4 disagree ({what}): weights {agree}, tsdf p99 {p99}")
+    del va, vb, diff
+    return dict(errs={"planes_extract": err7, "tsdf_dense": err8},
+                calls={"planes_extract": k7_calls, "tsdf_dense": k8_calls},
+                bounds={"planes_extract": k7_bound, "tsdf_dense": k8_bound},
+                launches=launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -647,71 +934,80 @@ def main() -> None:
         print(f"# ptxas: {ln}", flush=True)
 
     intr, poses, frames = workload(device)
-
-    # 4. warm orbit, then each kernel against its plain version
-    st, warm_s, _ = run_orbit(intr, poses, frames, RES, device)
-    st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0], device=device)
-    st0 = kinfu_step(st0, frames[0], intr)
     pose1 = torch.from_numpy(poses[1]).to(device)
-    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1, RES)
+
+    def warm_states(dtype):
+        st, warm_s, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+        st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                         dtype=dtype, device=device)
+        return st, kinfu_step(st0, frames[0], intr), warm_s
+
+    # 4. box-512 (packed): warm orbit, then each kernel against its plain version
+    st, st0, warm_s = warm_states(torch.int32)
+    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1)
     print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
     del st, st0
 
     # 5. split and unsplit integrates of the orbit
-    same, observed = split_orbit_identical(intr, poses, frames, device)
+    same, observed = split_orbit_identical(intr, poses, frames, device, torch.int32)
     if not same:
         fail("the orbit integrated with the free split differs from the unsplit one")
     print(f"# split vs unsplit orbit (21 integrates at the true poses): bit-identical, "
           f"{observed} observed voxels", flush=True)
 
     # 6. the timed main-path run, with launch counts
-    cuda_lib.reset_counts()
-    st, secs, tracked = run_orbit(intr, poses, frames, RES, device)
-    launches = dict(cuda_lib.launch_counts)
-    plain = dict(cuda_lib.plain_counts)
-    err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1000.0
-    maps = st.model_maps
-    print(f"# orbit {RES}^3 {intr.width}x{intr.height}: {N_FRAMES} frames in {secs:.4f} s = "
-          f"{secs / N_FRAMES * 1000:.3f} ms/frame = {N_FRAMES / secs:.2f} fps (warm pass "
-          f"{warm_s:.4f} s); pose error {err_mm:.3f} mm; last rmse "
-          f"{float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; "
-          f"tracked {sum(tracked)}/{len(tracked)} [{card}]", flush=True)
-    print(f"# launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
-    if err_mm > POSE_BUDGET_MM:
-        fail(f"pose error {err_mm:.3f} mm exceeds {POSE_BUDGET_MM} mm")
-    if not all(tracked):
-        fail("a frame of the orbit was dropped")
-    if tuple(maps.shape) != (8, intr.height, intr.width) or not bool(torch.isfinite(maps).all()):
-        fail("model maps malformed")
-    if float(maps[7].mean()) < 0.5:
-        fail(f"model maps cover only {float(maps[7].mean()):.3f} of the image")
-    check_counts("the orbit", launches, plain, cuda_lib.KERNEL_PATH)
-    _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr))
-    print(f"# orbit {RES}^3: one more step made {len(syncs)} host synchronisations {syncs}",
-          flush=True)
+    st, secs = timed_orbit(intr, poses, frames, device, card, torch.int32, warm_s)
     del st
     torch.cuda.empty_cache()
 
-    # 7. the scan at full width
+    # 7. box-512-f32: the kernel path on the float32 volume
+    st, st0, warm_f = warm_states(torch.float32)
+    f32 = {}
+    f32["tsdf_stream"] = compare_stream(st, frames[N_FRAMES], intr)
+    f32["tsdf_free"] = compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr)
+    same, observed = split_orbit_identical(intr, poses, frames, device, torch.float32)
+    if not same:
+        fail("box-512-f32: the orbit integrated with the free split differs from the unsplit one")
+    print(f"# box-{RES}-f32 split vs unsplit orbit (21 integrates at the true poses): "
+          f"bit-identical, {observed} observed voxels", flush=True)
+    diff7, n7, v7 = k7_oracle(st, frames[N_FRAMES], intr)
+    print(f"# box-{RES}-f32 K7 as the oracle of K4's planes after a step: {n7} listed chunks, "
+          f"{v7} valid sub-blocks, valid flags identical, fields max diff {diff7}", flush=True)
+    del st, st0
+    torch.cuda.empty_cache()
+    st, secs_f = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
+    del st
+    torch.cuda.empty_cache()
+
+    # 8. the scan at full width (fuses into float32)
     scan_launches = run_scan(intr, poses, frames, card)
     torch.cuda.empty_cache()
 
-    # 8. xla-480: the XLA path's orbit, K2 against its plain version
+    # 9. xla-480: the XLA path's orbit, K2 against its plain version
     xla = run_xla(intr, poses, frames, device, card)
     errs["solve6"], calls["solve6"], bounds["solve6"] = xla["err"], xla["calls"], xla["bound"]
     torch.cuda.empty_cache()
 
-    # 9. scan-480: the scan takes the XLA path unasked
+    # 10. scan-480: the scan takes the XLA path unasked
     run_scan(intr, poses, frames, card, res=XLA_RES)
     torch.cuda.empty_cache()
 
-    # 10. kernel vs plain times, CUDA events
+    # 11. dense-512: K8, then raycast_pallas (K7, K6)
+    dense = run_dense(intr, poses, frames, device, card)
+    for key in ("errs", "calls", "bounds"):
+        {"errs": errs, "calls": calls, "bounds": bounds}[key].update(dense[key])
+    torch.cuda.empty_cache()
+
+    # 12. kernel vs plain times, CUDA events
     reps = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
-            "tsdf_free": (20, 1), "raycast_tiles": (50, 2), "solve6": (200, 3)}
+            "tsdf_free": (20, 1), "raycast_tiles": (50, 2), "solve6": (200, 3),
+            "planes_extract": (20, 1), "tsdf_dense": (10, 1)}
     steps = N_FRAMES + 1
-    # launches: the kernel path's from the scan, K2's from the timed xla-480 pass
-    path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"])
-    step_launches = dict(launches, solve6=xla["launches"]["solve6"])
+    # launches: the kernel path's from the scan, K2's from the timed xla-480
+    # pass, K7's and K8's from the dense-512 run
+    path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"],
+                         planes_extract=dense["launches"]["planes_extract"],
+                         tsdf_dense=dense["launches"]["tsdf_dense"])
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k_fn, q_fn = calls[name]
@@ -719,27 +1015,28 @@ def main() -> None:
         plain_ms = cuda_ms(q_fn, reps[name][1])
         bound_ms, bound_by = bounds[name]
         print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.3e} ms "
-              f"({bound_by}), {step_launches[name] / steps:.2f} launches/step [{card}]", flush=True)
+              f"({bound_by}), {path_launches[name]} launches on its path's run of {steps} frames "
+              f"[{card}]", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": path_launches[name], "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
-    print(f"# sizes: K4 {sizes['n_listed']} listed chunks, K5 {sizes['n_sb']} superblocks / "
-          f"{sizes['n_members']} member chunks", flush=True)
-    # the TPU kernels still to port, at their 512^3 shapes: K7 reads the
-    # float32 tsdf and weight grids once and writes the (R/8, R/8, R/128,
-    # 16, 16) planes, ~30 float ops a voxel (crossing test, moment sums);
-    # K8 reads and writes both grids, reads one 640x480 depth frame and
-    # writes the (R/8, R/8, 16, 128) planes, ~60 float ops a voxel
-    vox = RES ** 3
-    k7 = bound(2 * vox * 4 + (RES // 8) ** 2 * (RES // 128) * 256 * 4, 30 * vox)
-    k8 = bound(4 * vox * 4 + 640 * 480 * 4 + (RES // 8) ** 2 * 16 * 128 * 4, 60 * vox)
-    print(f"# bounds of the kernels still to port at {RES}^3: K7 {k7[0]:.4f} ms ({k7[1]}), "
-          f"K8 {k8[0]:.4f} ms ({k8[1]})", flush=True)
+    for name, (err, (k_fn, q_fn), (bound_ms, bound_by), *_) in f32.items():
+        ms = cuda_ms(k_fn, reps[name][0])
+        plain_ms = cuda_ms(q_fn, reps[name][1])
+        print(f"# {name} (float32 volume, box-{RES}-f32): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}), max abs err {err} "
+              f"[{card}]", flush=True)
+    print(f"# sizes: K4 {sizes['n_listed']} listed chunks (packed), {f32['tsdf_stream'][3]} "
+          f"(float32); K5 {sizes['n_sb']} superblocks / {sizes['n_members']} member chunks "
+          f"(packed), {f32['tsdf_free'][3]} / {f32['tsdf_free'][4]} (float32)", flush=True)
+    del dense
+    torch.cuda.empty_cache()
 
-    # 11. where the device time goes, on each path
+    # 13. where the device time goes, on each path
     for tag, res, secs_, kw, name in (
-            ("box-512", RES, secs, {}, "profile.txt"),
+            (f"box-{RES}", RES, secs, {}, "profile.txt"),
+            (f"box-{RES}-f32", RES, secs_f, dict(dtype=torch.float32), "profile_f32.txt"),
             (f"xla-{XLA_RES}", XLA_RES, xla["secs"], dict(dtype=torch.float32, use_pallas=False),
              "profile_xla.txt")):
         dev_ms, n_launch, top, stages, k2_us = profile_steps(intr, poses, frames, res, device,

@@ -1,8 +1,16 @@
 // Per-sub-block surface-plane fit: the math of housescan_tpu/ops/
-// planes_pallas.py plane_fields_for_block (line 76), used inside K4
-// (tsdf_stream.cu). Operation for operation the plain version
-// housescan_tpu_torch/ops/planes.py: float32 moment terms summed in
-// double and rounded once, then the eigen analysis in float32.
+// planes_pallas.py plane_fields_for_block (line 76), shared by K4
+// (tsdf_stream.cu, the refit of listed chunks), K7 (planes_extract.cu,
+// every chunk) and K8 (tsdf_dense.cu, whole columns). Operation for
+// operation the plain version housescan_tpu_torch/ops/planes.py: float32
+// moment terms summed in double and rounded once, then the eigen analysis
+// in float32.
+//
+// A fit reads its voxels through an accessor tw(ix, iy, z, t, w); the
+// chunk kernels keep the chunk in shared memory (HsSmemChunk), with one
+// slice of z-halo where the +z crossings run on into the next chunk (K8's
+// columns). Where the sub-blocks lie and what they are called come in as
+// HsFitGeom, so one fit serves chunk ids (K4, K7) and column ids (K8).
 #pragma once
 
 #include "common.cuh"
@@ -10,6 +18,29 @@
 #define HS_N_FIELDS 16
 #define HS_NSUB 16
 #define HS_NMOM 19
+
+// A chunk of 8 x 8 x zs voxels in shared memory, t[(ix * 8 + iy) * zs + z]
+// (zs = 128, or 129 with a halo slice).
+struct HsSmemChunk {
+  const float* t;
+  const float* w;
+  int zs;
+  __device__ __forceinline__ void operator()(int ix, int iy, int z, float& tv, float& wv) const {
+    const int o = (ix * 8 + iy) * zs + z;
+    tv = t[o];
+    wv = w[o];
+  }
+};
+
+// Where a chunk's sub-blocks lie: sub-block s has id sid_base + sub and its
+// first voxel at z = z_base + 8 sub (sub = s for a chunk, the column's
+// sub-block index for K8).
+struct HsFitGeom {
+  int ci, cj;
+  float z_base;
+  long long sid_base;
+  float vs, ox, oy, oz, min_count;
+};
 
 __device__ __forceinline__ float hs_alpha(float t0, float t1) {
   const float denom = t0 - t1;
@@ -39,32 +70,33 @@ __device__ __forceinline__ float hs_wt(float wa, float wb) {
   return hs_clamp_max(fminf(wa, wb), 8.0f) * 0.125f;
 }
 
-// Moments of voxel (ix, iy, z) of a chunk held as t[ix][iy][z], w[...]
-// (8 x 8 x 128 floats each).
-__device__ __forceinline__ void hs_voxel_moments(double* acc, const float* t, const float* w,
-                                                 int ix, int iy, int z) {
-  const int o = (ix * 8 + iy) * 128 + z;
-  const float tv = t[o], wv = w[o];
+// Moments of voxel (ix, iy, z); the +z crossing counts only for z < z_lim
+// (the +x and +y ones stay inside the 8 x 8 column).
+template <class Tw>
+__device__ __forceinline__ void hs_voxel_moments(double* acc, const Tw& tw, int ix, int iy, int z,
+                                                 int z_lim) {
+  float tv, wv;
+  tw(ix, iy, z, tv, wv);
   const bool obs = wv > 0.0f;
   const float x = (float)ix, yf = (float)iy;
   const float zz = (float)(z & 7);
-  {  // +z neighbour (last lane of the chunk masked)
-    const int on = z < 127 ? o + 1 : o;
-    const float tn = t[on], wn = w[on];
+  {  // +z neighbour
+    float tn, wn;
+    tw(ix, iy, z < z_lim ? z + 1 : z, tn, wn);
     const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
-                     (z < 127 ? 1.0f : 0.0f);
+                     (z < z_lim ? 1.0f : 0.0f);
     hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf, zz + hs_alpha(tv, tn));
   }
   {  // +y neighbour
-    const int on = iy < 7 ? o + 128 : o;
-    const float tn = t[on], wn = w[on];
+    float tn, wn;
+    tw(ix, iy < 7 ? iy + 1 : iy, z, tn, wn);
     const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
                      (iy < 7 ? 1.0f : 0.0f);
     hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf + hs_alpha(tv, tn), zz);
   }
   {  // +x neighbour
-    const int on = ix < 7 ? o + 1024 : o;
-    const float tn = t[on], wn = w[on];
+    float tn, wn;
+    tw(ix < 7 ? ix + 1 : ix, iy, z, tn, wn);
     const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
                      (ix < 7 ? 1.0f : 0.0f);
     hs_crossing_terms(acc, mk, hs_wt(wv, wn), x + hs_alpha(tv, tn), yf, zz);
@@ -99,9 +131,9 @@ __device__ __forceinline__ float hs_inv_iter(const HsInv3& c, float& bx, float& 
   return norm;
 }
 
-// Fields of sub-block s of chunk (ci, cj, ck) from its 19 float moments.
-__device__ void hs_plane_fields(const float* acc, int ci, int cj, int ck, int s, float vs,
-                                float ox, float oy, float oz, int nbx, int nzc, float* out) {
+// Fields of sub-block ``sub`` of a chunk from its 19 float moments.
+static __device__ void hs_plane_fields(const float* acc, const HsFitGeom& g, float sub,
+                                       float* out) {
   const float ridge = 1e-4f;
   const float cnt = acc[10];
   const float n0 = hs_clamp_min(acc[0], 1e-6f);
@@ -161,15 +193,13 @@ __device__ void hs_plane_fields(const float* acc, int ci, int cj, int ck, int s,
   ny = ny * sign;
   nz = nz * sign;
 
-  const float sub = (float)s;
-  const float wx = ox + ((float)(ci * 8) + mx + 0.5f) * vs;
-  const float wy = oy + ((float)(cj * 8) + my + 0.5f) * vs;
-  const float wz = oz + ((float)(ck * 128) + sub * 8.0f + mz + 0.5f) * vs;
+  const float wx = g.ox + ((float)(g.ci * 8) + mx + 0.5f) * g.vs;
+  const float wy = g.oy + ((float)(g.cj * 8) + my + 0.5f) * g.vs;
+  const float wz = g.oz + (g.z_base + sub * 8.0f + mz + 0.5f) * g.vs;
   const float d = nx * wx + ny * wy + nz * wz;
 
-  const bool valid = (cnt >= 6.0f) && ok_plane && ok_spread;
+  const bool valid = (cnt >= g.min_count) && ok_plane && ok_spread;
   const float vf = valid ? 1.0f : 0.0f;
-  const long long sid = ((((long long)ci * nbx + cj) * nzc + ck) * HS_NSUB);
   const float r_inplane = 1.8f * sqrtf(hs_clamp_min(trace - lam_min, 0.0f));
   out[0] = nx * vf;
   out[1] = ny * vf;
@@ -177,8 +207,8 @@ __device__ void hs_plane_fields(const float* acc, int ci, int cj, int ck, int s,
   out[3] = d * vf;
   out[4] = vf;
   out[5] = cnt;
-  out[6] = (float)sid + sub;
-  out[7] = (r_inplane + 1.5f) * vs;
+  out[6] = (float)g.sid_base + sub;
+  out[7] = (r_inplane + 1.5f) * g.vs;
   out[8] = wx;
   out[9] = wy;
   out[10] = wz;
@@ -187,4 +217,30 @@ __device__ void hs_plane_fields(const float* acc, int ci, int cj, int ck, int s,
   out[13] = 0.0f;
   out[14] = 0.0f;
   out[15] = 0.0f;
+}
+
+// Warp fit of sub-block s (z in [8 s, 8 s + 8) of the chunk): lane l takes
+// z = 8 s + l % 8 and rows iy = l / 8 + 4 k of every ix; the moments are
+// summed in double over the warp, and lane 0 writes every field but 11
+// into fields[k][s] (shared memory, (HS_N_FIELDS, HS_NSUB)).
+template <class Tw>
+__device__ __forceinline__ void hs_fit_subblock_warp(const Tw& tw, int s, int lane, int z_lim,
+                                                     const HsFitGeom& g, float sub,
+                                                     float (*fields)[HS_NSUB]) {
+  double acc[HS_NMOM];
+#pragma unroll
+  for (int k = 0; k < HS_NMOM; ++k) acc[k] = 0.0;
+  const int zv = s * 8 + (lane & 7);
+  for (int ix = 0; ix < 8; ++ix)
+    for (int iy = lane >> 3; iy < 8; iy += 4) hs_voxel_moments(acc, tw, ix, iy, zv, z_lim);
+#pragma unroll
+  for (int k = 0; k < HS_NMOM; ++k)
+    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(HS_FULL_MASK, acc[k], o);
+  if (lane == 0) {
+    float accf[HS_NMOM], f[HS_N_FIELDS];
+    for (int k = 0; k < HS_NMOM; ++k) accf[k] = (float)acc[k];
+    hs_plane_fields(accf, g, sub, f);
+    for (int k = 0; k < HS_N_FIELDS; ++k)
+      if (k != 11) fields[k][s] = f[k];
+  }
 }

@@ -11,9 +11,9 @@
 // touched (the TPU kernel copies it through unchanged, which on the GPU
 // is leaving it alone).
 //
-// Bound: device-memory bytes. Each member chunk's 8192 packed voxels are
-// read once and written once (64 KB) and its (16, 16) planes tile is
-// written (1 KB); the arithmetic is ~30 float operations per voxel. The
+// Bound: device-memory bytes. Each member chunk's 8192 voxels are read
+// once and written once (packed: 32 KB each way; float32: 64 KB) and its
+// (16, 16) planes tile is written (1 KB); the arithmetic is ~30 float operations per voxel. The
 // design keeps the work to exactly those bytes: one block per member
 // chunk, every voxel loaded and stored once, coalesced along z, and the
 // per-quarter flag reductions in registers and shared memory.
@@ -23,7 +23,8 @@
 // z-quarter (w % 4), as in csrc/tsdf_stream.cu. Per voxel, the CLS_FREE
 // carve of the reference verbatim: the in-view test multiplied through by
 // zc, wnew = min(wold + wadd, max_weight), tnew = (told wold + wadd) /
-// max(wold + wadd, 1), the packed write with round half to even. Per
+// max(wold + wadd, 1), the store of the volume's layout (common.cuh: the
+// packed write rounds half to even; float32 stores as is). Per
 // z-quarter, min observed t, min observed w and max w (min/max: exact in
 // any order) give the saturation flag; the tile is zeros with the four
 // flags in field 11, columns 0-3. Eligibility (no observed negative tsdf
@@ -35,17 +36,9 @@
 #define TF_TILE 256  // (N_FIELDS, NSUB_C) = (16, 16) planes tile of a chunk
 #define TF_BIG 1.0e9f
 
-__device__ __forceinline__ float tf_warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(HS_FULL_MASK, v, o));
-  return v;
-}
-__device__ __forceinline__ float tf_warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(HS_FULL_MASK, v, o));
-  return v;
-}
-
+template <class Store>
 __global__ void __launch_bounds__(TF_THREADS)
-tsdf_free_kernel(int* __restrict__ vol, float* __restrict__ planes,
+tsdf_free_kernel(Store vol, float* __restrict__ planes,
                  const int* __restrict__ bitmap, const int* __restrict__ count,
                  const int* __restrict__ bi, const int* __restrict__ bj,
                  const int* __restrict__ bk, int ny, int nz, const float* __restrict__ p,
@@ -73,8 +66,8 @@ tsdf_free_kernel(int* __restrict__ vol, float* __restrict__ planes,
     const int xy = (tid >> 7) + 4 * k;
     const int ix = xy >> 3, iy = xy & 7;
     const size_t addr = ((size_t)(ci * 8 + ix) * ny + (cj * 8 + iy)) * nz + (size_t)ck * 128 + z;
-    const int old = vol[addr];
-    const float told = hs_unpack_t(old), wold = hs_unpack_w(old);
+    float told, wold;
+    vol.load(addr, told, wold);
     const float xw = ox + ((float)(ci * 8) + (float)ix + 0.5f) * vs;
     const float yw = oy + ((float)(cj * 8) + (float)iy + 0.5f) * vs;
     const float dx = xw - tx, dy = yw - ty, dz = zw - tz;
@@ -89,16 +82,16 @@ tsdf_free_kernel(int* __restrict__ vol, float* __restrict__ planes,
     const float denom = hs_clamp_min(wold + wadd, 1.0f);
     const float tnew = (told * wold + wadd) / denom;
     const float tcur = iv ? tnew : told;
-    vol[addr] = hs_pack(tcur, wnew);
+    vol.store(addr, tcur, wnew);
     const bool obs = wnew > 0.0f;
     mn_t = fminf(mn_t, obs ? tcur : 1.0f);
     mn_w = fminf(mn_w, obs ? wnew : TF_BIG);
     mx_w = fmaxf(mx_w, wnew);
   }
 
-  mn_t = tf_warp_min(mn_t);
-  mn_w = tf_warp_min(mn_w);
-  mx_w = tf_warp_max(mx_w);
+  mn_t = hs_warp_min(mn_t);
+  mn_w = hs_warp_min(mn_w);
+  mx_w = hs_warp_max(mx_w);
   if (lane == 0) {
     s_red[0][warp] = mn_t;
     s_red[1][warp] = mn_w;
@@ -122,12 +115,23 @@ tsdf_free_kernel(int* __restrict__ vol, float* __restrict__ planes,
   }
 }
 
-extern "C" int hs_tsdf_free(int* vol, float* planes, const int* bitmap, const int* count,
-                            const int* bi, const int* bj, const int* bk, int n_sb, int ny,
-                            int nz, const float* params, float sat_w, void* stream) {
+// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid) or
+// HS_LAYOUT_F32 (vol is the (2, nx, ny, nz) float32 array).
+extern "C" int hs_tsdf_free(void* vol, int layout, float* planes, const int* bitmap,
+                            const int* count, const int* bi, const int* bj, const int* bk,
+                            int n_sb, int nx, int ny, int nz, const float* params, float sat_w,
+                            void* stream) {
   if (n_sb <= 0) return 0;
   dim3 grid(n_sb, 16);
-  tsdf_free_kernel<<<grid, TF_THREADS, 0, (cudaStream_t)stream>>>(
-      vol, planes, bitmap, count, bi, bj, bk, ny, nz, params, sat_w);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (layout == HS_LAYOUT_PACKED)
+    tsdf_free_kernel<<<grid, TF_THREADS, 0, st>>>(HsPacked{(int*)vol}, planes, bitmap, count, bi,
+                                                  bj, bk, ny, nz, params, sat_w);
+  else if (layout == HS_LAYOUT_F32)
+    tsdf_free_kernel<<<grid, TF_THREADS, 0, st>>>(
+        HsPlanar<float>{(float*)vol, (size_t)nx * ny * nz}, planes, bitmap, count, bi, bj, bk,
+        ny, nz, params, sat_w);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

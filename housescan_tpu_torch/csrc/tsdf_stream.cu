@@ -10,12 +10,16 @@
 // consecutive z and belongs to one z-quarter (warp % 4).
 //   1. REFINE only: per-voxel in-view bbox -> mip level and window;
 //   2. BAND/REFINE: window all-valid test (every pixel > 0);
-//   3. read-modify-write of the packed voxels by class; the updated
-//      tsdf/weight also go to 64 KB of dynamic shared memory;
+//   3. read-modify-write of the voxels by class; the tsdf as stored and
+//      the weight also go to 64 KB of dynamic shared memory;
 //   4. flags: zero-crossing possible, per-quarter free-space saturation,
-//      any observed negative;
+//      any observed negative (from the unrounded updated values);
 //   5. planes: one warp per (8, 8, 8) sub-block (planes.cuh), written with
 //      the flags into field 11.
+// The kernel is templated on the volume store (common.cuh): the packed
+// int32 grid (32 KB in and out per chunk; the fit reads the quantized
+// values) or the float32 (2, X, Y, Z) array (64 KB in and out; the fit
+// reads the stored floats). One kernel, one set of math.
 #include "common.cuh"
 #include "planes.cuh"
 
@@ -31,51 +35,9 @@ struct TsMips {
   int w[4];
 };
 
-struct TsVoxel {
-  float zc, uf, vf, iv_free, iv;
-};
-
-__device__ __forceinline__ void ts_coords(const float* p, int ci, int cj, int ck, int ix,
-                                          int iy, int z, TsVoxel& o) {
-  const float r00 = p[0], r01 = p[1], r02 = p[2], r10 = p[3], r11 = p[4], r12 = p[5];
-  const float r20 = p[6], r21 = p[7], r22 = p[8];
-  const float tx = p[9], ty = p[10], tz = p[11];
-  const float fx = p[12], fy = p[13], cx = p[14], cy = p[15];
-  const float vs = p[17], ox = p[18], oy = p[19], oz = p[20];
-  const float img_w = p[22], img_h = p[23];
-  const float xw = ox + ((float)(ci * 8) + (float)ix + 0.5f) * vs;
-  const float yw = oy + ((float)(cj * 8) + (float)iy + 0.5f) * vs;
-  const float zw = oz + ((float)(ck * 128) + (float)z + 0.5f) * vs;
-  const float dx = xw - tx, dy = yw - ty, dz = zw - tz;
-  const float xc = dx * r00 + dy * r01 + dz * r02;
-  const float yc = dx * r10 + dy * r11 + dz * r12;
-  const float zc = dx * r20 + dy * r21 + dz * r22;
-  const float fxx = fx * xc, fyy = fy * yc;
-  o.zc = zc;
-  o.iv_free = ((zc > 1e-6f) && (fxx >= -cx * zc) && (fxx <= (img_w - 1.0f - cx) * zc) &&
-               (fyy >= -cy * zc) && (fyy <= (img_h - 1.0f - cy) * zc))
-                  ? 1.0f
-                  : 0.0f;
-  const float safe_z = hs_clamp_min(zc, 1e-6f);
-  o.uf = fx * xc / safe_z + cx;
-  o.vf = fy * yc / safe_z + cy;
-  o.iv = ((zc > 1e-6f) && (o.uf >= 0.0f) && (o.uf <= img_w - 1.0f) && (o.vf >= 0.0f) &&
-          (o.vf <= img_h - 1.0f))
-             ? 1.0f
-             : 0.0f;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(HS_FULL_MASK, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(HS_FULL_MASK, v, o));
-  return v;
-}
-
+template <class Store>
 __global__ void __launch_bounds__(TS_THREADS)
-tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
+tsdf_stream_kernel(Store vol, float* __restrict__ planes,
                    const int* __restrict__ desc, const int* __restrict__ count, int ny, int nz,
                    TsMips mips, const float* __restrict__ p, float sat_w) {
   if ((int)blockIdx.x >= *count) return;
@@ -97,8 +59,8 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
     float umin = TS_BIG, umax = -TS_BIG, vmin = TS_BIG, vmax = -TS_BIG;
     for (int k = 0; k < 16; ++k) {
       const int xy = (tid >> 7) + 4 * k;
-      TsVoxel c;
-      ts_coords(p, ci, cj, ck, xy >> 3, xy & 7, z, c);
+      HsVoxel c;
+      hs_voxel_coords(p, ci, cj, ck, xy >> 3, xy & 7, z, c);
       if (c.iv > 0.5f) {
         umin = fminf(umin, c.uf);
         umax = fmaxf(umax, c.uf);
@@ -106,10 +68,10 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
         vmax = fmaxf(vmax, c.vf);
       }
     }
-    umin = warp_min(umin);
-    umax = warp_max(umax);
-    vmin = warp_min(vmin);
-    vmax = warp_max(vmax);
+    umin = hs_warp_min(umin);
+    umax = hs_warp_max(umax);
+    vmin = hs_warp_min(vmin);
+    vmax = hs_warp_max(vmax);
     if (lane == 0) {
       s_red[0][warp] = umin;
       s_red[1][warp] = umax;
@@ -167,10 +129,10 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
     const int xy = (tid >> 7) + 4 * k;
     const int ix = xy >> 3, iy = xy & 7;
     const size_t addr = ((size_t)(ci * 8 + ix) * ny + (cj * 8 + iy)) * nz + (size_t)ck * 128 + z;
-    const int old = vol[addr];
-    const float told = hs_unpack_t(old), wold = hs_unpack_w(old);
-    TsVoxel c;
-    ts_coords(p, ci, cj, ck, ix, iy, z, c);
+    float told, wold;
+    vol.load(addr, told, wold);
+    HsVoxel c;
+    hs_voxel_coords(p, ci, cj, ck, ix, iy, z, c);
     bool update;
     float sample;
     if (cls == CLS_FREE) {
@@ -209,10 +171,8 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
     const float denom = hs_clamp_min(wold + wadd, 1.0f);
     const float tnew = (told * wold + sample * wadd) / denom;
     const float tcur = update ? tnew : told;
-    const int packed = hs_pack(tcur, wnew);
-    vol[addr] = packed;
     const int o = (ix * 8 + iy) * 128 + z;
-    s_t[o] = hs_unpack_t(packed);
+    s_t[o] = vol.store(addr, tcur, wnew);
     s_w[o] = wnew;
     const bool obs = wnew > 0.0f;
     mn_t = fminf(mn_t, obs ? tcur : 1.0f);
@@ -223,11 +183,11 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
   }
 
   // 4. flags (min/max are exact in any order)
-  mn_t = warp_min(mn_t);
-  mx_t = warp_max(mx_t);
-  q_minw = warp_min(q_minw);
-  q_mint = warp_min(q_mint);
-  q_maxw = warp_max(q_maxw);
+  mn_t = hs_warp_min(mn_t);
+  mx_t = hs_warp_max(mx_t);
+  q_minw = hs_warp_min(q_minw);
+  q_mint = hs_warp_min(q_mint);
+  q_maxw = hs_warp_max(q_maxw);
   __syncthreads();  // s_red may still be read by the bbox reduction
   if (lane == 0) {
     s_red[0][warp] = mn_t;
@@ -261,23 +221,17 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
 
   // 5. planes: warp s fits sub-block s (z in [8s, 8s + 8))
   if (s_win[3]) {
-    double acc[HS_NMOM];
-#pragma unroll
-    for (int k = 0; k < HS_NMOM; ++k) acc[k] = 0.0;
-    const int zv = warp * 8 + (lane & 7);
-    for (int ix = 0; ix < 8; ++ix)
-      for (int iy = lane >> 3; iy < 8; iy += 4) hs_voxel_moments(acc, s_t, s_w, ix, iy, zv);
-#pragma unroll
-    for (int k = 0; k < HS_NMOM; ++k)
-      for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(HS_FULL_MASK, acc[k], o);
-    if (lane == 0) {
-      float accf[HS_NMOM], f[HS_N_FIELDS];
-      for (int k = 0; k < HS_NMOM; ++k) accf[k] = (float)acc[k];
-      hs_plane_fields(accf, ci, cj, ck, warp, p[17], p[18], p[19], p[20], (int)p[24],
-                      (int)p[25], f);
-      for (int k = 0; k < HS_N_FIELDS; ++k)
-        if (k != 11) s_fields[k][warp] = f[k];
-    }
+    HsFitGeom g;
+    g.ci = ci;
+    g.cj = cj;
+    g.z_base = (float)(ck * 128);
+    g.sid_base = (((long long)ci * (int)p[24] + cj) * (int)p[25] + ck) * HS_NSUB;
+    g.vs = p[17];
+    g.ox = p[18];
+    g.oy = p[19];
+    g.oz = p[20];
+    g.min_count = 6.0f;
+    hs_fit_subblock_warp(HsSmemChunk{s_t, s_w, 128}, warp, lane, 127, g, (float)warp, s_fields);
     __syncthreads();
   }
   if (tid < HS_N_FIELDS * HS_NSUB) {
@@ -286,23 +240,38 @@ tsdf_stream_kernel(int* __restrict__ vol, float* __restrict__ planes,
   }
 }
 
-extern "C" int hs_tsdf_stream(int* vol, float* planes, const int* desc, const int* count,
-                              int n_desc, int nx, int ny, int nz, const float* mip0, int h0,
-                              int w0, const float* mip1, int h1, int w1, const float* mip2,
-                              int h2, int w2, const float* l3, int h3, int w3,
-                              const float* params, float sat_w, void* stream) {
-  (void)nx;
-  if (n_desc <= 0) return 0;
+template <class Store>
+static int ts_launch(Store vol, float* planes, const int* desc, const int* count, int n_desc,
+                     int ny, int nz, const TsMips& mips, const float* params, float sat_w,
+                     cudaStream_t stream) {
   const int smem = 2 * TS_VOX * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(tsdf_stream_kernel,
+  cudaError_t e = cudaFuncSetAttribute(tsdf_stream_kernel<Store>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
+  tsdf_stream_kernel<Store><<<n_desc, TS_THREADS, smem, stream>>>(vol, planes, desc, count, ny,
+                                                                  nz, mips, params, sat_w);
+  return (int)cudaGetLastError();
+}
+
+// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid) or
+// HS_LAYOUT_F32 (vol is the (2, nx, ny, nz) float32 array).
+extern "C" int hs_tsdf_stream(void* vol, int layout, float* planes, const int* desc,
+                              const int* count, int n_desc, int nx, int ny, int nz,
+                              const float* mip0, int h0, int w0, const float* mip1, int h1,
+                              int w1, const float* mip2, int h2, int w2, const float* l3, int h3,
+                              int w3, const float* params, float sat_w, void* stream) {
+  if (n_desc <= 0) return 0;
   TsMips mips;
   mips.m[0] = mip0; mips.h[0] = h0; mips.w[0] = w0;
   mips.m[1] = mip1; mips.h[1] = h1; mips.w[1] = w1;
   mips.m[2] = mip2; mips.h[2] = h2; mips.w[2] = w2;
   mips.m[3] = l3; mips.h[3] = h3; mips.w[3] = w3;
-  tsdf_stream_kernel<<<n_desc, TS_THREADS, smem, (cudaStream_t)stream>>>(
-      vol, planes, desc, count, ny, nz, mips, params, sat_w);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (layout == HS_LAYOUT_PACKED)
+    return ts_launch(HsPacked{(int*)vol}, planes, desc, count, n_desc, ny, nz, mips, params,
+                     sat_w, st);
+  if (layout == HS_LAYOUT_F32)
+    return ts_launch(HsPlanar<float>{(float*)vol, (size_t)nx * ny * nz}, planes, desc, count,
+                     n_desc, ny, nz, mips, params, sat_w, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,7 @@ reference:
   * the kernel path (``use_pallas=True``, the port's default): ICP by K3,
     the work-list integrate with the plane refit and the free split (K5
     then K4), the plane raycast (K6) with seam masking. It needs a cubic
-    packed int32 volume that tiles into (8, 8, 128) chunks;
+    volume that tiles into (8, 8, 128) chunks, in either layout;
   * the XLA path (``use_pallas=False``, the reference's default): the
     XLA ICP loop with the standalone solve (K2), the dense integrate
     (``tsdf.tsdf_integrate``) and the TSDF ray marcher
@@ -68,11 +68,12 @@ def kinfu_init(
     trunc: float = 0.03,
     origin=None,
     init_pose=None,
-    dtype=torch.int32,
+    dtype=torch.float32,
     device="cuda",
 ) -> KinFuState:
     """Fresh state with every tensor on ``device``; ``dtype`` picks the
-    volume layout (``torch.int32`` packed, ``torch.float32`` float)."""
+    volume layout: ``torch.float32`` (2, X, Y, Z), the reference's
+    default, or ``torch.int32`` packed."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
@@ -138,10 +139,6 @@ def kinfu_step(
     integrates."""
     vol = state.volume
     if use_pallas:
-        if not vol.packed_i32:
-            raise NotImplementedError(
-                "kinfu_step: the f32 layout of K4/K5 is not ported yet; "
-                "step a float32 volume with use_pallas=False")
         if len(set(vol.dims)) != 1 or not pallas_supported(vol.dims[0]):
             raise ValueError("kinfu_step(use_pallas=True): needs a cubic volume tiling into "
                              "128-voxel chunks; use_pallas=False takes any volume")

@@ -15,12 +15,12 @@ which the reference's room stage (``housescan_tpu.rooms.load_room``)
 loads unchanged. The volume stays on the device; only the surface cloud,
 the planes and the mesh's triangles come to the host.
 
-``use_pallas`` picks the fusion path and defaults to
-``pallas_supported(resolution)``: a volume that tiles into 128-voxel
-chunks takes the kernel path (K1, K3, K5, K4, K6) on the packed int32
-layout; any other takes the XLA path (K1, the XLA ICP loop with K2, the
-dense integrate, the ray marcher) on the float32 layout, the one the
-reference's scan fuses into. (The reference also sends every scan on its
+Both paths fuse into the float32 (2, X, Y, Z) volume, as the reference's
+scan does (its ``kinfu_init`` default). ``use_pallas`` picks the fusion
+path and defaults to ``pallas_supported(resolution)``: a volume that
+tiles into 128-voxel chunks takes the kernel path (K1, K3, K5, K4, K6);
+any other takes the XLA path (K1, the XLA ICP loop with K2, the dense
+integrate, the ray marcher). (The reference also sends every scan on its
 CPU to the XLA path; the port's kernel path runs on either device.)
 """
 
@@ -104,7 +104,6 @@ def scan_to_room_dir(
             size_m=tsdf_cfg.size_m,
             trunc=tsdf_cfg.trunc_dist,
             init_pose=init_pose,
-            dtype=torch.int32 if use_pallas else torch.float32,
             device=device,
         )
     if timings is not None and device.type == "cuda":

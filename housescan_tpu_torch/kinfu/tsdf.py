@@ -11,13 +11,15 @@ free space.
   * packed: one (X, Y, Z) int32 grid, the tsdf quantized to
     [-32767, 32767] in the HIGH half and the integer weight in the LOW
     half, bit-identical to the reference (``torch.round`` rounds half to
-    even, as ``jnp.round`` does). The kernel path (K4, K5) fuses into it;
+    even, as ``jnp.round`` does);
   * float: one (2, X, Y, Z) float32 array, ``data[0]`` the tsdf grid and
-    ``data[1]`` the weight grid. The reference's scan and its XLA path
-    fuse into it. The reference's bfloat16 variant is not ported.
+    ``data[1]`` the weight grid, the reference's default. Its scan fuses
+    into it. The reference's bfloat16 variant is not ported.
 
-``tsdf`` / ``weight`` / ``dims`` / ``replace_grids`` read and write
-either layout. ``tsdf_integrate`` is the reference's dense gather-side
+Both fusion paths take both layouts. ``tsdf`` / ``weight`` / ``dims`` /
+``replace_grids`` read and write either layout, and ``read_tw`` /
+``write_tw`` a gathered set of cells of it (the plain versions of the
+kernels). ``tsdf_integrate`` is the reference's dense gather-side
 integrate (every voxel projects into the frame and pulls its depth),
 ``sample_trilinear`` / ``tsdf_gradient`` feed the TSDF ray marcher
 (``kinfu/raycast.py``), and ``extract_surface_points`` dumps the
@@ -54,6 +56,29 @@ def unpack_t(data: torch.Tensor) -> torch.Tensor:
 
 def unpack_w(data: torch.Tensor) -> torch.Tensor:
     return (data & 0xFFFF).to(torch.float32)
+
+
+def read_tw(data: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float32 (tsdf, weight) of the cells ``idx`` (an index of the
+    (X, Y, Z) grid) of a volume's ``data`` in either layout: decoded from
+    the packed grid, or read from the two float planes."""
+    if data.dim() == 3:
+        cell = data[idx]
+        return unpack_t(cell), unpack_w(cell)
+    return data[0][idx], data[1][idx]
+
+
+def write_tw(data: torch.Tensor, idx, t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Store (tsdf, weight) into the cells ``idx`` of either layout (the
+    packed grid: ``pack_tw``; float: the two planes). Returns the tsdf as
+    stored, which is what a later read gives (quantized when packed)."""
+    if data.dim() == 3:
+        cell = pack_tw(t, w)
+        data[idx] = cell
+        return unpack_t(cell)
+    data[0][idx] = t
+    data[1][idx] = w
+    return t
 
 
 class TsdfVolume(NamedTuple):
@@ -106,9 +131,9 @@ def tsdf_new(
     device="cuda",
 ) -> TsdfVolume:
     """Fresh volume (tsdf = +1 far free space, weight 0) on ``device``:
-    packed for ``dtype=torch.int32`` (the port's default, the kernel
-    path's layout), float for ``torch.float32``. The default origin
-    centers the cube on the world origin."""
+    packed for ``dtype=torch.int32`` (this function's default), float for
+    ``torch.float32`` (``kinfu_init``'s default, as the reference's). The
+    default origin centers the cube on the world origin."""
     if dtype not in (torch.int32, torch.float32):
         raise NotImplementedError(f"tsdf_new: {dtype} volumes are not ported (int32 or float32)")
     if origin is None:

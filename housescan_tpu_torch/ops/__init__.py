@@ -12,4 +12,24 @@ PyTorch version, and a note on the Pallas kernel it replaces:
   plane fit of ``planes.py`` inlined as ``csrc/planes.cuh``; and K5, the
   free carve of the superblock split, ``csrc/tsdf_free.cu``)
 - ``raycast_tiles.raycast_tiles_maps`` (K6, ``csrc/raycast_tiles.cu``)
+- ``planes_cuda.extract_subblock_planes`` (K7, ``csrc/planes_extract.cu``:
+  the planes of every chunk, for ``raycast_planes.raycast_pallas``)
+- ``tsdf_cuda.tsdf_integrate_with_planes`` / ``tsdf_integrate_pallas``
+  (K8, ``csrc/tsdf_dense.cu``: the dense column integrate with its fused
+  plane fit)
+
+``tsdf_integrate_pallas`` is exported here, as the reference exports it.
 """
+
+__all__ = ["tsdf_integrate_pallas"]
+
+
+def __getattr__(name):
+    # Resolved on first use: ``kinfu.tsdf`` imports ``ops.cuda_lib``, so an
+    # eager import of ``tsdf_cuda`` here would import ``kinfu.tsdf`` while
+    # it is still initialising.
+    if name == "tsdf_integrate_pallas":
+        from housescan_tpu_torch.ops.tsdf_cuda import tsdf_integrate_pallas
+
+        return tsdf_integrate_pallas
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

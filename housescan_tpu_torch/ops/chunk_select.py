@@ -337,13 +337,15 @@ def _free_superblocks(free, skip, neg_flags, nbx_x, nbx_y, nzc):
     s_bitmap = bitmap.reshape(n_sb)[order]
     s_coords = coords[:, order]
     count = sb_ok.sum().to(torch.int32)
-    # padding repeats the last listed entry; nothing listed -> all zeros
-    last = torch.clamp(count - 1, min=0).long()
+    # padding repeats the last listed entry; nothing listed -> all zeros.
+    # A 1-element index keeps the gather on the device (indexing with the
+    # 0-d tensor would read it on the host).
+    last = torch.clamp(count - 1, min=0).long().reshape(1)
     real = ids < count
     any_real = count > 0
-    fb = torch.where(real, s_bitmap, s_bitmap[last])
+    fb = torch.where(real, s_bitmap, s_bitmap.index_select(0, last))
     fb = torch.where(any_real, fb, 0)
-    fc = torch.where(real[None], s_coords, s_coords[:, last][:, None])
+    fc = torch.where(real[None], s_coords, s_coords.index_select(1, last))
     fc = torch.where(any_real, fc, 0)
     fwl = FreeWorkList(
         bitmap=fb.contiguous(),

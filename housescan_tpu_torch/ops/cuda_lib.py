@@ -36,11 +36,18 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "--fmad=false",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6")
-# The kernels each fusion path of kinfu_step launches: the kernel path
-# (use_pallas=True) and the XLA path (use_pallas=False).
+KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6",
+           "planes_extract", "tsdf_dense")
+# The kernels each path launches: the kernel path of kinfu_step
+# (use_pallas=True), its XLA path (use_pallas=False), and the dense path
+# (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas).
 KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles")
 XLA_PATH = ("bilateral", "solve6")
+DENSE_PATH = ("tsdf_dense", "planes_extract", "raycast_tiles")
+
+# Volume layouts of the kernels' storage template (csrc/common.cuh).
+LAYOUT_PACKED = 0
+LAYOUT_F32 = 1
 
 launch_counts = {k: 0 for k in KERNELS}
 plain_counts = {k: 0 for k in KERNELS}
@@ -57,16 +64,25 @@ _SIGNATURES = {
     "hs_bilateral": [_P, _P, _I, _I, _I, _D, _D, _P],
     # packed, hp, wp, params, pose0, state, partials, n_iters, stream
     "hs_icp_level": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
-    # vol, planes, desc, count, n_desc, nx, ny, nz, mip0, h0, w0, mip1,
-    # h1, w1, mip2, h2, w2, l3, h3, w3, params, sat_w, stream
+    # vol, layout, planes, desc, count, n_desc, nx, ny, nz, mip0, h0, w0,
+    # mip1, h1, w1, mip2, h2, w2, l3, h3, w3, params, sat_w, stream
     "hs_tsdf_stream": [
-        _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _I, _P, _P, _P, _I, _I, _I, _I,
         _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
         _P, _F, _P,
     ],
-    # vol, planes, bitmap, count, bi, bj, bk, n_sb, ny, nz, params, sat_w,
-    # stream
-    "hs_tsdf_free": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _F, _P],
+    # vol, layout, planes, bitmap, count, bi, bj, bk, n_sb, nx, ny, nz,
+    # params, sat_w, stream
+    "hs_tsdf_free": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    # vol, layout, planes, nx, ny, nz, params, stream
+    "hs_planes_extract": [_P, _I, _P, _I, _I, _I, _P, _P],
+    # vol, nx, ny, nz, mip0, h0, w0, mip1, h1, w1, mip2, h2, w2, l3, h3, w3,
+    # l3min, l3max, l3valid, params, cls, planes, stream
+    "hs_tsdf_dense": [
+        _P, _I, _I, _I,
+        _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P,
+    ],
     # cand, n_tiles, max_ct, params, out, h, w_pad, stream
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
     # abp, out, damping, max_step, stream
@@ -160,6 +176,18 @@ def require_cuda(name: str, *tensors, dtype=torch.float32) -> None:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def volume_layout(name: str, data: torch.Tensor):
+    """(layout code, (nx, ny, nz)) of a volume's ``data``: the packed
+    (X, Y, Z) int32 grid or the float32 (2, X, Y, Z) array; raises on any
+    other."""
+    if data.dtype == torch.int32 and data.dim() == 3:
+        return LAYOUT_PACKED, tuple(data.shape)
+    if data.dtype == torch.float32 and data.dim() == 4 and data.shape[0] == 2:
+        return LAYOUT_F32, tuple(data.shape[1:])
+    raise ValueError(f"{name}: a packed int32 (X, Y, Z) or float32 (2, X, Y, Z) volume is "
+                     f"required, got {data.dtype} {tuple(data.shape)}")
 
 
 def host_tensor(values, dtype, device) -> torch.Tensor:

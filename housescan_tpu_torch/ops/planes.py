@@ -1,11 +1,12 @@
 """Per-sub-block surface-plane fit (plain version).
 
 Replaces the math of ``housescan_tpu/ops/planes_pallas.py``
-(``plane_fields_for_block``, line 76). On the fusion step it runs inside
-K4 for every listed chunk whose TSDF may hold a zero crossing; the CUDA
-form is the device code ``csrc/planes.cuh`` (one warp per (8, 8, 8)
-sub-block). The standalone whole-volume extraction (K7,
-``extract_subblock_planes``) is not ported yet.
+(``plane_fields_for_block``, line 76). Three kernels run it, through the
+device code ``csrc/planes.cuh`` (one warp per (8, 8, 8) sub-block): K4
+for every listed chunk whose TSDF may hold a zero crossing
+(``ops/tsdf_stream.py``), K7 for every chunk of the volume
+(``ops/planes_cuda.extract_subblock_planes``) and K8 for whole (8, 8, R)
+columns (``ops/tsdf_cuda.py``).
 
 Fit: total least squares over the sub-block's TSDF zero-crossing points
 (sub-voxel interpolated along +x, +y, +z), each weighted by
@@ -44,18 +45,32 @@ def _alpha(t0, t1):
     )
 
 
-def plane_fields_plain(t, w, ci, cj, ck, vs, ox, oy, oz, nbx, nzc, min_count=6.0):
+def chunk_plane_fields(t, w, ci, cj, ck, vs, ox, oy, oz, nbx, nzc, min_count=6.0):
     """(B, 8, 8, 128) stored tsdf / weight of B chunks at chunk coords
-    (ci, cj, ck) -> (B, N_FIELDS, NSUB_C) fields."""
+    (ci, cj, ck) -> (B, N_FIELDS, NSUB_C) fields, under the chunk ids
+    ((ci nbx + cj) nzc + ck) 16 + s of the persistent planes layout."""
+    z_base = (ck * CHUNK_Z).to(torch.float32)
+    sid_base = ((ci.to(torch.int64) * nbx + cj) * nzc + ck) * NSUB_C
+    return plane_fields_plain(t, w, ci, cj, z_base, sid_base, vs, ox, oy, oz, min_count)
+
+
+def plane_fields_plain(t, w, ci, cj, z_base, sid_base, vs, ox, oy, oz, min_count=6.0):
+    """(B, 8, 8, nz) stored tsdf / weight of B blocks at x, y block coords
+    (ci, cj) -> (B, N_FIELDS, nz / 8) fields. Sub-block s of block b starts
+    at voxel z ``z_base[b] + 8 s`` and is called ``sid_base[b] + s``; the
+    +z crossings run through the whole block (only its last slice is
+    masked): a chunk for K4 and K7 (``chunk_plane_fields``), a whole
+    column for K8."""
     dev = t.device
     f32 = torch.float32
-    b = t.shape[0]
+    b, nz = t.shape[0], t.shape[3]
+    nsub = nz // SUB_Z
     x = torch.arange(8, dtype=f32, device=dev).reshape(1, 8, 1, 1)
     iy = torch.arange(8, dtype=f32, device=dev).reshape(1, 1, 8, 1)
-    zi = torch.arange(CHUNK_Z, device=dev).reshape(1, 1, 1, CHUNK_Z)
+    zi = torch.arange(nz, device=dev).reshape(1, 1, 1, nz)
     z_f = zi.to(f32)
     zz = z_f - torch.floor(z_f / SUB_Z) * SUB_Z
-    not_last_z = (zi < CHUNK_Z - 1).to(f32)
+    not_last_z = (zi < nz - 1).to(f32)
     not_last_y = (iy < 7.0).to(f32)
     not_last_x = (x < 7.0).to(f32)
     obs = w > 0.0
@@ -101,7 +116,7 @@ def plane_fields_plain(t, w, ci, cj, ck, vs, ox, oy, oz, nbx, nzc, min_count=6.0
     # (19, B, 8 ix, 128 z) -> per-sub-block sums. The float32 products
     # are summed in float64 and rounded once: E[p^2] - E[p]^2 cancels, and
     # a float32 sum's order would show in lambda_min at the 1e-5 level.
-    seg = torch.stack(rows).reshape(19, b, 8, NSUB_C, SUB_Z).sum(dim=-1)
+    seg = torch.stack(rows).reshape(19, b, 8, nsub, SUB_Z).sum(dim=-1)
     acc = seg.sum(dim=2).to(f32)
 
     cnt = acc[10]
@@ -176,18 +191,17 @@ def plane_fields_plain(t, w, ci, cj, ck, vs, ox, oy, oz, nbx, nzc, min_count=6.0
     ny_ = ny_ * sign
     nz_ = nz_ * sign
 
-    sub = torch.arange(NSUB_C, dtype=f32, device=dev)[None, :]
+    sub = torch.arange(nsub, dtype=f32, device=dev)[None, :]
     ci_f = (ci * 8).to(f32)[:, None]
     cj_f = (cj * 8).to(f32)[:, None]
-    z_base = (ck * CHUNK_Z).to(f32)[:, None]
     wx = ox + (ci_f + mx + 0.5) * vs
     wy = oy + (cj_f + my + 0.5) * vs
-    wz = oz + (z_base + sub * SUB_Z + mz + 0.5) * vs
+    wz = oz + (z_base.to(f32)[:, None] + sub * SUB_Z + mz + 0.5) * vs
     d = nx_ * wx + ny_ * wy + nz_ * wz
 
     valid = (cnt >= min_count) & ok_plane & ok_spread
     vf = valid.to(f32)
-    sub_id = ((((ci.to(torch.int64) * nbx + cj) * nzc + ck) * NSUB_C).to(f32))[:, None] + sub
+    sub_id = sid_base.to(f32)[:, None] + sub
     r_inplane = 1.8 * torch.sqrt(torch.clamp(trace - lam_min, min=0.0))
     radius_w = (r_inplane + 1.5) * vs
     zero = torch.zeros_like(cnt)

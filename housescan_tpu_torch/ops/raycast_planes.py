@@ -1,10 +1,12 @@
 """Plane-raycast front end: model maps from the sub-block surface planes.
 
-Counterpart of ``housescan_tpu/ops/raycast_pallas.py`` (``raycast_planes``
-and ``finalize_plane_maps``; tensor code, no kernel of its own): the raw
-maps of K6 (``ops/raycast_tiles.py``) go through occluder suppression,
-the disagreeing-seam mask and the +-EDGE_PX silhouette-skirt mask.
-Neighbour reads wrap around the image, as the reference's roll.
+Counterpart of ``housescan_tpu/ops/raycast_pallas.py`` (``raycast_planes``,
+``finalize_plane_maps`` and ``raycast_pallas``; tensor code, no kernel of
+its own): the raw maps of K6 (``ops/raycast_tiles.py``) go through
+occluder suppression, the disagreeing-seam mask and the +-EDGE_PX
+silhouette-skirt mask. Neighbour reads wrap around the image, as the
+reference's roll. ``raycast_pallas`` renders straight from a volume: K7
+(``ops/planes_cuda.py``) extracts the planes, then ``raycast_planes``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
+from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
 from housescan_tpu_torch.ops.raycast_tiles import raycast_tiles_maps
 
 EDGE_PX = 4
@@ -72,3 +75,16 @@ def finalize_plane_maps(raw: torch.Tensor, voxel_size=None) -> torch.Tensor:
 
     masked = torch.where(valid[None], raw, 0.0)
     return torch.cat([masked[: mp.MD_VALID], valid[None].to(torch.float32)], dim=0)
+
+
+def raycast_pallas(
+    vol: TsdfVolume,
+    pose: torch.Tensor,
+    intr: Intrinsics,
+    z_min: float = 0.3,
+) -> torch.Tensor:
+    """Model maps (8, H, W) straight from a volume of either layout: the
+    sub-block planes of every chunk (K7), then ``raycast_planes`` (K6 and
+    the masks). The reference's name, kept so a reader finds it."""
+    planes = extract_subblock_planes(vol)
+    return raycast_planes(planes, pose, intr, vol, z_min=z_min)

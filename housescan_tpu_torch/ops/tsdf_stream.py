@@ -12,13 +12,21 @@ Replaces ``housescan_tpu/ops/tsdf_stream.py:_kernel`` + ``_process_half``
   * REFINE: recompute the in-view bbox per voxel, choose the mip level
     and window from it, then as BAND;
 
-then the weight cap, the packed read-modify-write, and the refit of the
-chunk's 16 sub-block planes (``ops/planes.py``) when the updated chunk
-may hold a zero crossing, with the per-z-quarter free-space saturation
-flags and the any-negative flag in planes field 11, columns 0-4.
-Unlisted chunks keep their volume data and planes bit-identical. The
-volume and the planes are updated IN PLACE (the reference donates them),
-which saves a full copy of the 512 MB volume per frame.
+then the weight cap, the read-modify-write, and the refit of the chunk's
+16 sub-block planes (``ops/planes.py``) when the updated chunk may hold a
+zero crossing, with the per-z-quarter free-space saturation flags and the
+any-negative flag in planes field 11, columns 0-4. Unlisted chunks keep
+their volume data and planes bit-identical. The volume and the planes are
+updated IN PLACE (the reference donates them), which saves a full copy of
+the volume per frame.
+
+Both volume layouts (``kinfu/tsdf.py``), as in the reference: the packed
+int32 grid and the float32 (2, X, Y, Z) array. The math is float32 on
+both; the layout only decides how a cell is read and stored
+(``tsdf.read_tw`` / ``write_tw``; in CUDA the storage template of
+``csrc/common.cuh``). The plane fit reads the tsdf as stored (quantized
+when packed, the float itself otherwise); the saturation and negative
+flags read the unrounded updated values.
 
 The reference's hi/lo bf16 splits, the column-flat base and the one-hot
 window contractions are MXU precision engineering; here the bilinear
@@ -39,17 +47,18 @@ bit-identical to the unsplit integrate.
 CUDA kernel of K4, ``csrc/tsdf_stream.cu``: one block of 512 threads per listed
 chunk (the grid spans every chunk; blocks past the device-side count
 return at once, so the host never waits on the list length). The block
-reads its 8192 packed voxels once (32 KB), gathers depth from the
-L2-resident mips, writes the voxels back, keeps the updated tsdf/weight
-in 64 KB of dynamic shared memory, and one warp per sub-block fits the
-planes from there. Bound: device-memory traffic of 64 KB per listed
-chunk, about 1 GB a frame at 512^3 (~0.3 ms at 3.35 TB/s), plus the
-plane fit's ~10 float ops per voxel.
+reads its 8192 voxels once (32 KB packed, 64 KB float32), gathers depth
+from the L2-resident mips, writes the voxels back, keeps the updated
+tsdf/weight in 64 KB of dynamic shared memory, and one warp per
+sub-block fits the planes from there. Bound: device-memory traffic of 64
+KB (packed) or 128 KB (float32) per listed chunk, plus the plane fit's
+~10 float ops per voxel.
 
 CUDA kernel of K5, ``csrc/tsdf_free.cu``: one block of 512 threads per
 (listed superblock, member slot); a block past the device-side count or
 on a clear member bit returns at once. Bound: the member chunks' bytes,
-32 KB read and 32 KB written per member, plus its 1 KB planes tile;
+read and written once per member (32 KB each way packed, 64 KB float32),
+plus its 1 KB planes tile;
 non-member chunks are never touched (the TPU kernel copies them through).
 """
 
@@ -60,7 +69,7 @@ import torch.nn.functional as F
 
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.maps import halve_maps
-from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, pack_tw, unpack_t, unpack_w
+from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, read_tw, write_tw
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import (
     CLS_FREE,
@@ -70,7 +79,7 @@ from housescan_tpu_torch.ops.chunk_select import (
     FreeWorkList,
     build_worklist,
 )
-from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, plane_fields_plain
+from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, chunk_plane_fields
 
 CHUNK_Z = 128
 BIG = 1.0e9
@@ -132,6 +141,40 @@ def _stream_params(vol: TsdfVolume, pose, intr: Intrinsics, max_weight, nbx, nzc
     )
 
 
+def chunk_cells(ci, cj, ck):
+    """(X, Y, Z) index of the (B, 8, 8, 128) cells of chunks (ci, cj, ck)."""
+    ar8 = torch.arange(8, device=ci.device)
+    ar128 = torch.arange(CHUNK_Z, device=ci.device)
+    b = ci.shape[0]
+    return (
+        (ci[:, None] * 8 + ar8).reshape(b, 8, 1, 1),
+        (cj[:, None] * 8 + ar8).reshape(b, 1, 8, 1),
+        (ck[:, None] * CHUNK_Z + ar128).reshape(b, 1, 1, CHUNK_Z),
+    )
+
+
+def chunk_camera(ci, cj, ck, p):
+    """Camera-space (xc, yc, zc), each (B, 8, 8, 128), of the voxel centres
+    of chunks (ci, cj, ck) under the params vector ``p``
+    (``_stream_params``), in the kernels' float32 operation order."""
+    f32 = torch.float32
+    b = ci.shape[0]
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (p[k] for k in range(9))
+    tx, ty, tz = p[9], p[10], p[11]
+    vs = p[17]
+    ox, oy, oz = p[18], p[19], p[20]
+    ixf = torch.arange(8, dtype=f32, device=ci.device)
+    zf = torch.arange(CHUNK_Z, dtype=f32, device=ci.device)
+    xw = ox + ((ci * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 8, 1, 1) + 0.5) * vs
+    yw = oy + ((cj * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 1, 8, 1) + 0.5) * vs
+    zw = oz + ((ck * CHUNK_Z).to(f32).reshape(b, 1, 1, 1) + zf.reshape(1, 1, 1, CHUNK_Z) + 0.5) * vs
+    dx = xw - tx
+    dy = yw - ty
+    dz = zw - tz
+    return (dx * r00 + dy * r01 + dz * r02, dx * r10 + dy * r11 + dz * r12,
+            dx * r20 + dy * r21 + dz * r22)
+
+
 def _window_depth(mip, nrows, win_u, scale, v0, u0, uf, vf):
     """Bilinear depth of (B, 8, 8, 128) projections from each chunk's
     (nrows, win_u) window at (v0, u0) of ``mip``: (depth, has_depth)."""
@@ -178,33 +221,13 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     dev = data.device
     ci, cj, ck, cls, lvl, v0, u0 = (d[:, k] for k in range(7))
     b = d.shape[0]
-    ar8 = torch.arange(8, device=dev)
-    ar128 = torch.arange(CHUNK_Z, device=dev)
-    X = (ci[:, None] * 8 + ar8).reshape(b, 8, 1, 1)
-    Y = (cj[:, None] * 8 + ar8).reshape(b, 1, 8, 1)
-    Z = (ck[:, None] * CHUNK_Z + ar128).reshape(b, 1, 1, CHUNK_Z)
-    blk = data[X, Y, Z]
-    told = unpack_t(blk)
-    wold = unpack_w(blk)
-
-    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (p[k] for k in range(9))
-    tx, ty, tz = p[9], p[10], p[11]
+    cells = chunk_cells(ci, cj, ck)
+    told, wold = read_tw(data, cells)
     fx, fy, cx, cy = p[12], p[13], p[14], p[15]
     trunc, vs = p[16], p[17]
     ox, oy, oz = p[18], p[19], p[20]
     max_weight, img_w, img_h = p[21], p[22], p[23]
-
-    ixf = ar8.to(f32)
-    xw = ox + ((ci * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 8, 1, 1) + 0.5) * vs
-    yw = oy + ((cj * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 1, 8, 1) + 0.5) * vs
-    zw = oz + ((ck * CHUNK_Z).to(f32).reshape(b, 1, 1, 1)
-               + ar128.to(f32).reshape(1, 1, 1, CHUNK_Z) + 0.5) * vs
-    dx = xw - tx
-    dy = yw - ty
-    dz = zw - tz
-    xc = dx * r00 + dy * r01 + dz * r02
-    yc = dx * r10 + dy * r11 + dz * r12
-    zc = dx * r20 + dy * r21 + dz * r22
+    xc, yc, zc = chunk_camera(ci, cj, ck, p)
 
     # FREE in-view test, multiplied through by zc as in the reference
     fxx = fx * xc
@@ -273,8 +296,7 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     denom = torch.clamp(wold + wadd, min=1.0)
     tnew = (told * wold + sample * wadd) / denom
     tcur = torch.where(update, tnew, told)
-    new_blk = pack_tw(tcur, wnew)
-    data[X, Y, Z] = new_blk
+    t_stored = write_tw(data, cells, tcur, wnew)
 
     # flags from the unquantized updated values, as the reference's
     # sign scratch
@@ -288,9 +310,7 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     q_maxw = wnew.reshape(qshape).amax(dim=(1, 2, 4))
     sat = ((q_minw >= SAT_W) & (q_mint > 0.999) & (q_maxw > 0.0)).to(f32)
 
-    fields = plane_fields_plain(
-        unpack_t(new_blk), unpack_w(new_blk), ci, cj, ck, vs, ox, oy, oz, nbx, nzc
-    )
+    fields = chunk_plane_fields(t_stored, wnew, ci, cj, ck, vs, ox, oy, oz, nbx, nzc)
     fields = torch.where(may_cross.reshape(b, 1, 1), fields, 0.0)
     fields[:, FIELD_SAT, :N_QUARTERS] = sat
     fields[:, FIELD_SAT, N_QUARTERS] = (mn_t < 0.0).to(f32)
@@ -306,31 +326,11 @@ def _carve_chunks(data, planes, c, p):
     dev = data.device
     ci, cj, ck = c[:, 0], c[:, 1], c[:, 2]
     b = c.shape[0]
-    ar8 = torch.arange(8, device=dev)
-    ar128 = torch.arange(CHUNK_Z, device=dev)
-    X = (ci[:, None] * 8 + ar8).reshape(b, 8, 1, 1)
-    Y = (cj[:, None] * 8 + ar8).reshape(b, 1, 8, 1)
-    Z = (ck[:, None] * CHUNK_Z + ar128).reshape(b, 1, 1, CHUNK_Z)
-    blk = data[X, Y, Z]
-    told = unpack_t(blk)
-    wold = unpack_w(blk)
-    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (p[k] for k in range(9))
-    tx, ty, tz = p[9], p[10], p[11]
+    cells = chunk_cells(ci, cj, ck)
+    told, wold = read_tw(data, cells)
     fx, fy, cx, cy = p[12], p[13], p[14], p[15]
-    vs = p[17]
-    ox, oy, oz = p[18], p[19], p[20]
     max_weight, img_w, img_h = p[21], p[22], p[23]
-    ixf = ar8.to(f32)
-    xw = ox + ((ci * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 8, 1, 1) + 0.5) * vs
-    yw = oy + ((cj * 8).to(f32).reshape(b, 1, 1, 1) + ixf.reshape(1, 1, 8, 1) + 0.5) * vs
-    zw = oz + ((ck * CHUNK_Z).to(f32).reshape(b, 1, 1, 1)
-               + ar128.to(f32).reshape(1, 1, 1, CHUNK_Z) + 0.5) * vs
-    dx = xw - tx
-    dy = yw - ty
-    dz = zw - tz
-    xc = dx * r00 + dy * r01 + dz * r02
-    yc = dx * r10 + dy * r11 + dz * r12
-    zc = dx * r20 + dy * r21 + dz * r22
+    xc, yc, zc = chunk_camera(ci, cj, ck, p)
     fxx = fx * xc
     fyy = fy * yc
     iv = (
@@ -345,7 +345,7 @@ def _carve_chunks(data, planes, c, p):
     denom = torch.clamp(wold + wadd, min=1.0)
     tnew = (told * wold + wadd) / denom
     tcur = torch.where(iv, tnew, told)
-    data[X, Y, Z] = pack_tw(tcur, wnew)
+    write_tw(data, cells, tcur, wnew)
 
     obs = wnew > 0.0
     qshape = (b, 8, 8, N_QUARTERS, CHUNK_Z // N_QUARTERS)
@@ -389,13 +389,13 @@ def tsdf_integrate_stream(
     max_weight: float = 128.0,
     free_split: bool = True,
 ):
-    """Integrate ``depth`` at ``pose`` into the packed volume and refresh
-    the persistent planes of every listed chunk, both IN PLACE: the free
-    carve (K5) over the pure-free superblocks when ``free_split``, then K4
-    over the main list. Returns (vol, planes)."""
-    dims = vol.dims
-    if any(d % 8 for d in dims) or dims[2] % CHUNK_Z or vol.data.dtype != torch.int32:
-        raise ValueError(f"tsdf_integrate_stream: packed int32 volume tiling into (8, 8, 128) chunks required, got {dims}")
+    """Integrate ``depth`` at ``pose`` into the volume (either layout) and
+    refresh the persistent planes of every listed chunk, both IN PLACE:
+    the free carve (K5) over the pure-free superblocks when
+    ``free_split``, then K4 over the main list. Returns (vol, planes)."""
+    _, dims = cuda_lib.volume_layout("tsdf_integrate_stream", vol.data)
+    if any(d % 8 for d in dims) or dims[2] % CHUNK_Z:
+        raise ValueError(f"tsdf_integrate_stream: a volume tiling into (8, 8, 128) chunks required, got {dims}")
     nbx, nby, nzc = dims[0] // 8, dims[1] // 8, dims[2] // CHUNK_Z
     if tuple(planes.shape) != planes_shape(dims):
         raise ValueError(f"planes shape {tuple(planes.shape)} != {planes_shape(dims)}")
@@ -423,18 +423,21 @@ def tsdf_integrate_stream(
 
 
 def launch_stream_kernel(data, planes, desc, count, mips, params):
-    """The CUDA K4 launch over a work list (in place)."""
-    cuda_lib.require_cuda("tsdf_stream", data, desc, count, dtype=torch.int32)
+    """The CUDA K4 launch over a work list (in place), on either volume
+    layout."""
+    layout, dims = cuda_lib.volume_layout("tsdf_stream", data)
+    cuda_lib.require_cuda("tsdf_stream", data, dtype=data.dtype)
+    cuda_lib.require_cuda("tsdf_stream", desc, count, dtype=torch.int32)
     cuda_lib.require_cuda("tsdf_stream", planes, params, *mips)
-    if (data.dim() != 3 or tuple(planes.shape) != planes_shape(tuple(data.shape))
+    if (tuple(planes.shape) != planes_shape(dims)
             or desc.dim() != 2 or desc.shape[1] != 8 or count.numel() != 1
             or params.numel() < 26 or any(m.dim() != 2 for m in mips)):
         raise ValueError("tsdf_stream: bad volume, planes, work-list, params or mip shapes")
-    nx, ny, nz = data.shape
+    nx, ny, nz = dims
     m0, m1, m2, l3 = mips
     lib = cuda_lib.load()
     rc = lib.hs_tsdf_stream(
-        data.data_ptr(), planes.data_ptr(), desc.data_ptr(), count.data_ptr(),
+        data.data_ptr(), layout, planes.data_ptr(), desc.data_ptr(), count.data_ptr(),
         desc.shape[0], nx, ny, nz,
         m0.data_ptr(), m0.shape[0], m0.shape[1],
         m1.data_ptr(), m1.shape[0], m1.shape[1],
@@ -447,20 +450,23 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
 
 
 def launch_free_kernel(data, planes, fwl: FreeWorkList, params):
-    """The CUDA K5 launch over a free work list (in place)."""
-    cuda_lib.require_cuda("tsdf_free", data, fwl.bitmap, fwl.count, fwl.bi, fwl.bj, fwl.bk,
+    """The CUDA K5 launch over a free work list (in place), on either
+    volume layout."""
+    layout, dims = cuda_lib.volume_layout("tsdf_free", data)
+    cuda_lib.require_cuda("tsdf_free", data, dtype=data.dtype)
+    cuda_lib.require_cuda("tsdf_free", fwl.bitmap, fwl.count, fwl.bi, fwl.bj, fwl.bk,
                           dtype=torch.int32)
     cuda_lib.require_cuda("tsdf_free", planes, params)
     n_sb = fwl.bitmap.shape[0]
-    if (data.dim() != 3 or tuple(planes.shape) != planes_shape(tuple(data.shape))
+    if (tuple(planes.shape) != planes_shape(dims)
             or fwl.count.numel() != 1 or params.numel() < 26
             or any(a.dim() != 1 or a.shape[0] != n_sb for a in (fwl.bi, fwl.bj, fwl.bk))
-            or data.shape[0] % 32 or data.shape[1] % 32):
+            or dims[0] % 32 or dims[1] % 32):
         raise ValueError("tsdf_free: bad volume, planes, free work-list or params shapes")
-    _, ny, nz = data.shape
+    nx, ny, nz = dims
     rc = cuda_lib.load().hs_tsdf_free(
-        data.data_ptr(), planes.data_ptr(), fwl.bitmap.data_ptr(), fwl.count.data_ptr(),
-        fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), n_sb, ny, nz,
+        data.data_ptr(), layout, planes.data_ptr(), fwl.bitmap.data_ptr(), fwl.count.data_ptr(),
+        fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), n_sb, nx, ny, nz,
         params.data_ptr(), SAT_W, cuda_lib.stream_ptr(),
     )
     cuda_lib.check(rc, "hs_tsdf_free")

@@ -1,14 +1,15 @@
 """The pure-free split (``chunk_select.FreeWorkList``) and its carve (K5)
 against the reference, and against the port's own unsplit integrate.
 
-Scene: the furnished-room orbit at 128^3 packed / 160x120, so the volume
+Scene: the furnished-room orbit at 128^3 / 160x120, so the volume
 has 16 x 16 chunk columns and the split fires. Over the 3 m room a chunk
 is the volume's whole depth, and the chunks that classify FREE there
 hold no voxel in view (they lie at the frustum's edge): the carve rewrites
 their planes tiles and changes no voxel. So the carve's parity also runs
 on a 0.75 m cube of free space in front of the camera (5.9 mm voxels, as
 at 512^3 over 3 m), where the members are carved. The reference runs as
-its own tests run it (Pallas in ``interpret=True``). Bounds:
+its own tests run it (Pallas in ``interpret=True``), on each volume
+layout: packed int32 and float32 (2, X, Y, Z). Bounds:
 
   * the free work list and the main list after the split: equal to the
     reference's (they are integer outputs of the same predicates);
@@ -19,9 +20,12 @@ its own tests run it (Pallas in ``interpret=True``). Bounds:
     planes tiles bit-identical. The carve has no bf16 split: both sides
     run the same float32 operations on the same inputs, so nothing
     rounds differently. Everywhere else the K4 bounds of
-    ``tests/test_torch_integrate.py``: weights identical, packed tsdf
-    within one step on >= 99.9% of observed voxels, field 11 identical.
+    ``tests/test_torch_integrate.py``: weights identical, the tsdf within
+    one step (packed) on >= 99.9% of observed voxels or 1e-5 (float32),
+    field 11 identical.
 """
+
+import functools
 
 import pytest
 
@@ -79,18 +83,32 @@ def _flags(planes):
     return sat, neg
 
 
+LAYOUTS = {"packed": (jnp.int32, torch.int32), "float32": (jnp.float32, torch.float32)}
+
+
 def _chunks(data):
-    return data.reshape(NB, 8, NB, 8, 1, 128).transpose(0, 2, 4, 1, 3, 5)
+    """(NB, NB, 1, 8, 8, 128[, ...]) chunk view of either layout (the
+    float32 one with its (tsdf, weight) pair last)."""
+    if data.ndim == 4:
+        data = np.moveaxis(data, 0, -1)
+    tail = data.shape[3:]
+    return data.reshape((NB, 8, NB, 8, 1, 128) + tail).transpose(
+        (0, 2, 4, 1, 3, 5) + tuple(range(6, 6 + len(tail))))
 
 
-def _carried(size_m, origin):
+def _weights(data):
+    return data & 0xFFFF if data.ndim == 3 else data[1]
+
+
+def _carried(size_m, origin, layout="packed"):
     """The reference's state after frame 0 (unsplit), both packages' work
     lists for frame 1, and each package's frame 1 with the split from
     that state, on a 128^3 volume of ``size_m`` at ``origin``."""
     torch.set_num_threads(1)
     frames, poses = _scene(2)
+    j_dtype, t_dtype = LAYOUTS[layout]
     jv = j_tsdf_new(RES, size_m, TRUNC, origin=None if origin is None else jnp.asarray(origin),
-                    dtype=jnp.int32)
+                    dtype=j_dtype)
     jp = jnp.zeros(planes_shape(RES), jnp.float32)
     jv, jp = j_integrate(jv, jp, jnp.asarray(frames[0]), jnp.asarray(poses[0]), JINTR,
                          interpret=True, free_split=False)
@@ -103,7 +121,7 @@ def _carried(size_m, origin):
     j_plain = j_build_worklist(
         jnp.asarray(d1), jnp.asarray(p1), JINTR, RES, jv.voxel_size, jv.origin, jv.trunc,
         sat_quarters=jnp.asarray(sat))
-    tv = tsdf_new(RES, size_m, TRUNC, device="cpu",
+    tv = tsdf_new(RES, size_m, TRUNC, dtype=t_dtype, device="cpu",
                   origin=None if origin is None else torch.tensor(origin))
     t_wl, t_fwl = build_worklist(
         torch.from_numpy(d1), torch.from_numpy(p1), INTR, RES, tv.voxel_size, tv.origin,
@@ -123,16 +141,19 @@ def _carried(size_m, origin):
     )
 
 
-@pytest.fixture(scope="module")
-def carried():
-    """The 3 m room volume."""
-    return _carried(3.0, None)
+# the 3 m room volume, and a 0.75 m cube of free space in front of the camera
+SCENES = {"carried": (3.0, None), "carved": (0.75, (-0.375, -0.375, 0.35))}
 
 
-@pytest.fixture(scope="module")
-def carved():
-    """A 0.75 m cube of free space in front of the camera."""
-    return _carried(0.75, [-0.375, -0.375, 0.35])
+@functools.lru_cache(maxsize=None)
+def _scene_run(scene, layout):
+    """Each (scene, layout) run once per module."""
+    return _carried(*SCENES[scene], layout)
+
+
+@pytest.fixture(scope="module", params=list(LAYOUTS))
+def carried(request):
+    return _scene_run("carried", request.param)
 
 
 def test_free_worklist_matches_reference(carried):
@@ -167,9 +188,10 @@ def test_split_actually_fires(carried):
     assert len(main) + len(members) == len(plain)
 
 
-@pytest.mark.parametrize("scene", ["carried", "carved"])
-def test_free_carve_bit_identical_to_reference_on_members(scene, request):
-    run = request.getfixturevalue(scene)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_free_carve_bit_identical_to_reference_on_members(scene, layout):
+    run = _scene_run(scene, layout)
     _, members = decode_free_worklist(run["t_fwl"])
     assert members
     m = np.zeros((NB, NB, 1), bool)
@@ -179,17 +201,24 @@ def test_free_carve_bit_identical_to_reference_on_members(scene, request):
     np.testing.assert_array_equal(td[m], jd[m])
     np.testing.assert_array_equal(run["t_planes"][m], run["j_planes"][m])
     if scene == "carved":  # the carve updated voxels there
-        assert (td[m] != _chunks(run["data0"])[m]).sum() > 10000
+        changed = td[m] != _chunks(run["data0"])[m]
+        if changed.ndim == 5:  # float32: (tsdf, weight) last
+            changed = changed.any(axis=-1)
+        assert changed.sum() > 10000
 
 
-@pytest.mark.parametrize("scene", ["carried", "carved"])
-def test_split_frame_within_k4_bounds_elsewhere(scene, request):
-    run = request.getfixturevalue(scene)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_split_frame_within_k4_bounds_elsewhere(scene, layout):
+    run = _scene_run(scene, layout)
     jd, td = run["j_data"], run["t_data"]
-    np.testing.assert_array_equal(td & 0xFFFF, jd & 0xFFFF)
-    obs = (jd & 0xFFFF) > 0
-    dq = np.abs((td >> 16).astype(np.int64) - (jd >> 16))[obs]
-    assert (dq <= 1).mean() >= 0.999
+    np.testing.assert_array_equal(_weights(td), _weights(jd))
+    obs = _weights(jd) > 0
+    if jd.ndim == 3:
+        dq = np.abs((td >> 16).astype(np.int64) - (jd >> 16))[obs]
+        assert (dq <= 1).mean() >= 0.999
+    else:
+        assert np.abs(td[0] - jd[0])[obs].max() <= 1e-5
     np.testing.assert_array_equal(run["t_planes"][:, :, :, FIELD_SAT],
                                   run["j_planes"][:, :, :, FIELD_SAT])
 
@@ -200,11 +229,13 @@ def test_cpu_split_runs_plain_versions_only(carried):
     assert launched["tsdf_free"] == 0 and launched["tsdf_stream"] == 0
 
 
-def test_split_bit_identical_to_unsplit():
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["packed", "float32"])
+def test_split_bit_identical_to_unsplit(dtype):
     """The port's split and unsplit integrates over 3 frames: the same
     volume and planes bit for bit."""
     frames, poses = _scene(3)
-    va, vb = tsdf_new(RES, 3.0, TRUNC, device="cpu"), tsdf_new(RES, 3.0, TRUNC, device="cpu")
+    va = tsdf_new(RES, 3.0, TRUNC, dtype=dtype, device="cpu")
+    vb = tsdf_new(RES, 3.0, TRUNC, dtype=dtype, device="cpu")
     pa, pb = torch.zeros(planes_shape(RES)), torch.zeros(planes_shape(RES))
     n_free = 0
     for d, p in zip(frames, poses):

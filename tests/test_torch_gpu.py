@@ -9,14 +9,17 @@ Inputs come from the port's own synthetic module (no JAX). The library
 builds with --fmad=false, so kernel and plain version run the same
 float32 operations; they differ only in summation order. Bounds: K1
 2e-5; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
-reference's bounds for its fused level); K4 weights identical, packed
-tsdf within one step on >= 99.9% of voxels, plane valid flags on >= 99.9%
-of sub-blocks, fields 1e-5 (both sum the moments in float64), field 11
-identical; K6 valid masks on >= 99.5% of pixels, rows 1e-5 where both hit;
-K5 bit-identical (the carve has no reduction whose order could differ),
-and so the split and unsplit integrates too; K2 within 2e-5 (the
-reference's bound; the same scalar operations, so 0 is expected), and
-on degenerate systems the pose exactly unchanged.
+reference's bounds for its fused level); K4 weights identical, the tsdf
+within one quantization step (packed) or 1e-6 (float32) on >= 99.9% of
+voxels, plane valid flags on >= 99.9% of sub-blocks, fields 1e-5 (both
+sum the moments in float64), field 11 identical; K6 valid masks on >=
+99.5% of pixels, rows 1e-5 where both hit; K5 bit-identical (the carve
+has no reduction whose order could differ), and so the split and
+unsplit integrates too, on both layouts; K2 within 2e-5 (the reference's
+bound; the same scalar operations, so 0 is expected), and on degenerate
+systems the pose exactly unchanged; K7 and K8 bit-identical, K8's chunk
+classes too (the fit sums in float64 and rounds once; K8's bilinear
+repeats its plain version's operation order).
 """
 
 import numpy as np
@@ -25,7 +28,7 @@ import torch
 
 from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
-from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_run
+from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_run, kinfu_step
 from housescan_tpu_torch.kinfu.preprocess import bilateral_filter, build_pyramid
 from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
@@ -41,6 +44,18 @@ from housescan_tpu_torch.ops.raycast_tiles import (
     raycast_tiles_plain,
 )
 from housescan_tpu_torch.ops.chunk_select import decode_free_worklist
+from housescan_tpu_torch.ops.planes_cuda import (
+    _extract_params,
+    extract_planes_plain,
+    launch_extract_kernel,
+)
+from housescan_tpu_torch.ops.raycast_planes import raycast_pallas
+from housescan_tpu_torch.ops.tsdf_cuda import (
+    dense_inputs,
+    dense_integrate_plain,
+    launch_dense_kernel,
+    tsdf_integrate_with_planes,
+)
 from housescan_tpu_torch.ops.tsdf_stream import (
     FIELD_SAT,
     N_QUARTERS,
@@ -116,11 +131,24 @@ def test_icp_kernel_matches_plain(cuda):
     assert abs(int(kc) - int(qc)) <= max(5, int(qc) // 200)
 
 
-@pytest.fixture
-def fused(cuda):
-    """A 128^3 volume with one fused frame, and the next frame's inputs."""
+LAYOUTS = [torch.int32, torch.float32]
+
+
+def _weights(data):
+    return (data & 0xFFFF).to(torch.float32) if data.dim() == 3 else data[1]
+
+
+def _tsdf_steps(data):
+    """The tsdf in quantization steps (packed) or as stored (float32)."""
+    return data >> 16 if data.dim() == 3 else data[0]
+
+
+@pytest.fixture(params=LAYOUTS, ids=["packed", "float32"])
+def fused(cuda, request):
+    """A 128^3 volume of each layout with one fused frame, and the next
+    frame's inputs."""
     poses, frames = _stream(QQVGA, 2, 0.3, cuda)
-    vol = tsdf_new(128, 3.0, 0.06, device=cuda)
+    vol = tsdf_new(128, 3.0, 0.06, dtype=request.param, device=cuda)
     planes = torch.zeros(planes_shape(128), device=cuda)
     pose0 = torch.from_numpy(poses[0]).to(cuda)
     vol, planes = tsdf_integrate_stream(vol, planes, frames[0], pose0, QQVGA)
@@ -139,9 +167,10 @@ def test_stream_kernel_matches_plain(fused):
     qd, qp = vol.data.clone(), planes.clone()
     integrate_plain(qd, qp, wl.desc, wl.count, mips, params, 16, 1)
     torch.cuda.synchronize()
-    assert torch.equal(kd & 0xFFFF, qd & 0xFFFF)
-    assert int((kd & 0xFFFF).max()) == 2
-    assert float((((kd >> 16) - (qd >> 16)).abs() <= 1).float().mean()) >= 0.999
+    assert torch.equal(_weights(kd), _weights(qd))
+    assert int(_weights(kd).max()) == 2
+    step = 1 if kd.dim() == 3 else 1e-6
+    assert float(((_tsdf_steps(kd) - _tsdf_steps(qd)).abs() <= step).float().mean()) >= 0.999
     kv, qv = kp[:, :, :, 4] > 0.5, qp[:, :, :, 4] > 0.5
     assert int(qv.sum()) > 30
     assert float((kv == qv).float().mean()) >= 0.999
@@ -165,35 +194,49 @@ def test_raycast_kernel_matches_plain(fused):
 
 
 @pytest.mark.gpu
-def test_step_runs_through_every_kernel(cuda):
-    """Three fused frames on the card: every kernel launched, no plain
-    version ran, and the poses match the CPU run of the same stream
-    (same operations, other summation order) to 1e-3."""
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_step_runs_through_every_kernel(cuda, dtype):
+    """Three fused frames on the card, on each layout: every kernel of the
+    path launched, no other and no plain version, the poses match the CPU
+    run of the same stream (same operations, other summation order) to
+    1e-3, and one more step makes the host wait on the card nowhere
+    (PyTorch's sync debug mode raises on a synchronisation)."""
     poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
     cuda_lib.reset_counts()
-    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0], device=cuda)
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                    dtype=dtype, device=cuda)
     st, traj = kinfu_run(st, frames[:3], QQVGA)
     torch.cuda.synchronize()
     assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNEL_PATH)
+    assert all(cuda_lib.launch_counts[k] == 0 for k in cuda_lib.KERNELS
+               if k not in cuda_lib.KERNEL_PATH)
     assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = kinfu_step(st, frames[3], QQVGA)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
     cpu = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
-                      device="cpu")
+                     dtype=dtype, device="cpu")
     cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA)
     np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
-    assert np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[2][3, :3]) < 0.02
+    assert np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[3][3, :3]) < 0.02
 
 
-def _carved_scene(cuda, n):
+def _carved_scene(cuda, n, dtype=torch.int32):
     """A 0.75 m cube of free space in front of the orbit's camera (5.9 mm
     voxels at 128^3), where the free carve's members hold voxels in view."""
     poses, frames = _stream(QQVGA, n, 0.3, cuda)
-    vol = tsdf_new(128, 0.75, 0.06, origin=torch.tensor([-0.375, -0.375, 0.35]), device=cuda)
+    vol = tsdf_new(128, 0.75, 0.06, origin=torch.tensor([-0.375, -0.375, 0.35]), dtype=dtype,
+                   device=cuda)
     return vol, torch.zeros(planes_shape(128), device=cuda), poses, frames
 
 
 @pytest.mark.gpu
-def test_free_kernel_matches_plain(cuda):
-    vol, planes, poses, frames = _carved_scene(cuda, 2)
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_free_kernel_matches_plain(cuda, dtype):
+    vol, planes, poses, frames = _carved_scene(cuda, 2, dtype)
     vol, planes = tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda),
                                         QQVGA, free_split=False)
     p1 = torch.from_numpy(poses[1]).to(cuda)
@@ -216,14 +259,16 @@ def test_free_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
 @pytest.mark.parametrize("scene", ["room", "carved"])
-def test_split_orbit_bit_identical_to_unsplit(cuda, scene):
+def test_split_orbit_bit_identical_to_unsplit(cuda, scene, dtype):
     """Three frames at the orbit's poses, with and without the split."""
     if scene == "carved":
-        va, pa, poses, frames = _carved_scene(cuda, 3)
+        va, pa, poses, frames = _carved_scene(cuda, 3, dtype)
     else:
         poses, frames = _stream(QQVGA, 3, 0.3, cuda)
-        va, pa = tsdf_new(128, 3.0, 0.06, device=cuda), torch.zeros(planes_shape(128), device=cuda)
+        va = tsdf_new(128, 3.0, 0.06, dtype=dtype, device=cuda)
+        pa = torch.zeros(planes_shape(128), device=cuda)
     vb, pb = va._replace(data=va.data.clone()), pa.clone()
     for d, p in zip(frames, poses):
         p = torch.from_numpy(p).to(cuda)
@@ -283,3 +328,62 @@ def test_xla_step_on_card_matches_cpu(cuda):
     cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA, use_pallas=False)
     np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
     assert float(st.model_maps[7].mean()) > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_extract_kernel_matches_plain(cuda, dtype):
+    """K7 on a volume of each layout with two fused frames."""
+    poses, frames = _stream(QQVGA, 2, 0.3, cuda)
+    vol = tsdf_new(128, 3.0, 0.06, dtype=dtype, device=cuda)
+    planes = torch.zeros(planes_shape(128), device=cuda)
+    for d, p in zip(frames, poses):
+        tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(cuda), QQVGA)
+    params = _extract_params(vol, 6.0, 16)
+    before = cuda_lib.launch_counts["planes_extract"]
+    k = launch_extract_kernel(vol.data, params)
+    q = extract_planes_plain(vol.data, params)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["planes_extract"] == before + 1
+    assert int((q[:, :, :, 4] > 0.5).sum()) > 30
+    assert torch.equal(k, q)
+
+
+@pytest.mark.gpu
+def test_dense_kernel_matches_plain(cuda):
+    """K8 on frame 1 over a float32 volume carried from frame 0: volume,
+    planes and chunk classes."""
+    poses, frames = _stream(QQVGA, 2, 0.3, cuda)
+    vol = tsdf_new(128, 3.0, 0.06, dtype=torch.float32, device=cuda)
+    vol, _ = tsdf_integrate_with_planes(vol, frames[0], torch.from_numpy(poses[0]), QQVGA)
+    mips, params = dense_inputs(vol, frames[1], torch.from_numpy(poses[1]), QQVGA)
+    before = cuda_lib.launch_counts["tsdf_dense"]
+    kd = vol.data.clone()
+    kc, kp = launch_dense_kernel(kd, mips, params)
+    qd = vol.data.clone()
+    qc, qp = dense_integrate_plain(qd, mips, params)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tsdf_dense"] == before + 1
+    assert int((qc > 0).sum()) > 50 and int(qd[1].max()) == 2
+    assert torch.equal(kc, qc)
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+
+
+@pytest.mark.gpu
+def test_dense_path_launches_its_kernels_only(cuda):
+    """Path (B): two frames fused by K8, then model maps by raycast_pallas
+    (K7, K6): those three launched, no other kernel and no plain version;
+    the maps cover the view."""
+    poses, frames = _stream(QQVGA, 2, 0.1, cuda)
+    cuda_lib.reset_counts()
+    vol = tsdf_new(128, 3.0, 0.06, dtype=torch.float32, device=cuda)
+    for d, p in zip(frames, poses):
+        vol, _ = tsdf_integrate_with_planes(vol, d, torch.from_numpy(p), QQVGA)
+    maps = raycast_pallas(vol, torch.from_numpy(poses[0]).to(cuda), QQVGA)
+    torch.cuda.synchronize()
+    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.DENSE_PATH)
+    assert all(cuda_lib.launch_counts[k] == 0 for k in cuda_lib.KERNELS
+               if k not in cuda_lib.DENSE_PATH)
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
+    assert float(maps[7].mean()) > 0.5

@@ -3,14 +3,18 @@
 Two frames of the furnished-room orbit go through the reference's
 ``tsdf_integrate_stream`` (Pallas in interpret mode, ``free_split=False``,
 the configuration the port implements) and through the port's plain
-path, from the same fresh 128^3 packed volume. Tolerances:
+path, from the same fresh 128^3 volume, in each layout: packed int32 and
+the float32 (2, X, Y, Z) array (the reference's tests run its stream
+kernel on both). Tolerances:
 
   * weights: identical (integer counts; the port reproduces the
     reference's update predicates operation for operation);
-  * packed tsdf: within one quantization step (1/32767) on >= 99.9% of
-    observed voxels. The port computes the bilinear depth in plain
-    float32 where the reference splits it into bf16 hi/lo parts, a
-    last-bit difference that can move a rounding to the next step;
+  * tsdf: packed, within one quantization step (1/32767) on >= 99.9% of
+    observed voxels; float32, within 1e-5 there. The port computes the
+    bilinear depth in plain float32 where the reference splits it into
+    bf16 hi/lo parts, a last-bit difference of the depth (~2.4e-7 m at
+    2 m, 4e-6 over the 0.06 m truncation) that can also move a packed
+    rounding to the next step;
   * planes of listed chunks: valid flags agree on >= 99.9% of
     sub-blocks, fields within 1e-5 where both are valid (the reference's
     own plane-refresh bound), field 11 (saturation/negative flags)
@@ -21,7 +25,12 @@ path, from the same fresh 128^3 packed volume. Tolerances:
     directly and the normal's off-axis components divided by the
     eigen-gap, which the validity gate keeps >= 0.1 (<= 7.6e-5; the port
     sums in float64, measured max 1.7e-5);
-  * unlisted chunks: volume data and planes bit-identical.
+  * unlisted chunks: volume data and planes bit-identical;
+  * K7 as the oracle (twin of the reference's
+    ``test_planes_match_standalone_extraction``): a fresh extraction over
+    the integrated volume equals K4's planes on every listed chunk, valid
+    flags identical and every field but 11 (K4's flags) within 1e-5
+    where valid.
 """
 
 import pytest
@@ -42,6 +51,7 @@ from housescan_tpu.ops.tsdf_stream import tsdf_integrate_stream as j_integrate
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_worklist
+from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
 from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, planes_shape, tsdf_integrate_stream
 
 JINTR = JIntrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
@@ -62,14 +72,19 @@ def _scene():
     return np.asarray(frames), np.asarray(poses)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Both packages over two frames, with each frame's work list."""
+LAYOUTS = {"packed": (jnp.int32, torch.int32), "float32": (jnp.float32, torch.float32)}
+
+
+@pytest.fixture(scope="module", params=list(LAYOUTS))
+def runs(request):
+    """Both packages over two frames in one layout, with each frame's work
+    list."""
     torch.set_num_threads(1)
     frames, poses = _scene()
-    jv = j_tsdf_new(RES, 3.0, TRUNC, dtype=jnp.int32)
+    j_dtype, t_dtype = LAYOUTS[request.param]
+    jv = j_tsdf_new(RES, 3.0, TRUNC, dtype=j_dtype)
     jp = jnp.zeros(planes_shape(RES), jnp.float32)
-    tv = tsdf_new(RES, 3.0, TRUNC, device="cpu")
+    tv = tsdf_new(RES, 3.0, TRUNC, dtype=t_dtype, device="cpu")
     tp = torch.zeros(planes_shape(RES))
     j_lists, t_lists = [], []
     for i in range(2):
@@ -95,11 +110,12 @@ def runs():
 
 
 def _weights(data):
-    return data & 0xFFFF
+    return data & 0xFFFF if data.ndim == 3 else data[1]
 
 
 def _tsdf_q(data):
-    return data >> 16
+    """The tsdf in quantization steps (packed) or as stored (float32)."""
+    return data >> 16 if data.ndim == 3 else data[0]
 
 
 def test_worklist_matches_reference(runs):
@@ -115,10 +131,14 @@ def test_weights_identical(runs):
 
 
 def test_packed_tsdf_within_one_step(runs):
+    """The stored tsdf: one quantization step (packed) or 1e-5 (float32)."""
     obs = _weights(runs["j_data"]) > 0
-    dq = np.abs(_tsdf_q(runs["t_data"]).astype(np.int64) - _tsdf_q(runs["j_data"]))[obs]
     assert obs.sum() > 10000
-    assert (dq <= 1).mean() >= 0.999, np.bincount(dq)[:4]
+    if runs["j_data"].ndim == 3:
+        dq = np.abs(_tsdf_q(runs["t_data"]).astype(np.int64) - _tsdf_q(runs["j_data"]))[obs]
+        assert (dq <= 1).mean() >= 0.999, np.bincount(dq)[:4]
+    else:
+        assert np.abs(_tsdf_q(runs["t_data"]) - _tsdf_q(runs["j_data"]))[obs].max() <= 1e-5
 
 
 def test_planes_agree(runs):
@@ -190,3 +210,27 @@ def test_worklist_matches_reference_at_resolution(res):
         torch.from_numpy(d), torch.from_numpy(p), INTR, res, tv.voxel_size, tv.origin, tv.trunc)))
     assert len(got) > 100
     assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["packed", "float32"])
+def test_planes_match_standalone_extraction(dtype):
+    """K7 as the oracle: the persistent planes of every listed chunk equal
+    a fresh extraction over the integrated volume where valid (twin of the
+    reference's test of that name)."""
+    frames, poses = _scene()
+    d, p = torch.from_numpy(frames[0]), torch.from_numpy(poses[0])
+    vol = tsdf_new(RES, 3.0, TRUNC, dtype=dtype, device="cpu")
+    planes = torch.zeros(planes_shape(RES))
+    wl = build_worklist(d, p, INTR, RES, vol.voxel_size, vol.origin, vol.trunc)
+    tsdf_integrate_stream(vol, planes, d, p, INTR)
+    want = extract_subblock_planes(vol).numpy()
+    got = planes.numpy()
+    fields = [f for f in range(16) if f != FIELD_SAT]
+    n_valid = 0
+    for ci, cj, ck, *_ in decode_worklist(wl):
+        g, w_ = got[ci, cj, ck], want[ci, cj, ck]
+        np.testing.assert_array_equal(g[4] > 0.5, w_[4] > 0.5)
+        m = w_[4] > 0.5
+        np.testing.assert_allclose(g[fields][:, m], w_[fields][:, m], atol=1e-5)
+        n_valid += int(m.sum())
+    assert n_valid > 30

@@ -1,12 +1,13 @@
 """The port's whole fusion step against the reference, and its closed loop.
 
 One reference state, two frames into the furnished-room orbit (Pallas
-kernels in interpret mode, 128^3 packed volume, 160x120), is carried
-into the port with ``state_from_numpy``; the next frame then goes
-through one ``kinfu_step`` in each package. Bounds: every pose entry
-within 1e-4 (the level bound of the ICP parity, 5e-5, over three
-levels), the same tracking decision, and model-map valid masks agreeing
-on >= 99% of pixels.
+kernels in interpret mode, a 128^3 volume of each layout: packed int32
+and float32, the reference's default, 160x120), is carried into the port
+with ``state_from_numpy``; the next frame then goes through one
+``kinfu_step`` in each package. Bounds: every pose entry within 1e-4 (the
+level bound of the ICP parity, 5e-5, over three levels), the same
+tracking decision, and model-map valid masks agreeing on >= 99% of
+pixels.
 """
 
 import inspect
@@ -58,7 +59,8 @@ def _ref_state_numpy(s):
     }
 
 
-def test_step_matches_reference_from_carried_state(stream):
+@pytest.mark.parametrize("layout", ["packed", "float32"])
+def test_step_matches_reference_from_carried_state(stream, layout):
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
@@ -69,8 +71,8 @@ def test_step_matches_reference_from_carried_state(stream):
     poses, frames = stream
     jintr = JIntrinsics(*INTR)
     frames_np = frames.numpy()
-    js = j_init(jintr, resolution=128, size_m=3.0, trunc=0.06,
-                init_pose=jnp.asarray(poses[0]), dtype=jnp.int32)
+    js = j_init(jintr, resolution=128, size_m=3.0, trunc=0.06, init_pose=jnp.asarray(poses[0]),
+                **({"dtype": jnp.int32} if layout == "packed" else {}))
     for i in range(2):
         js = j_step(js, jnp.asarray(frames_np[i]), jintr, use_pallas=True, interpret=True)
     # kinfu_step donates its input state: copy to numpy first
@@ -78,6 +80,7 @@ def test_step_matches_reference_from_carried_state(stream):
     js = j_step(js, jnp.asarray(frames_np[2]), jintr, use_pallas=True, interpret=True)
 
     ts = kinfu_step(state_from_numpy(carried, device="cpu"), frames[2], INTR)
+    assert ts.volume.packed_i32 == (layout == "packed")
     assert bool(ts.last_tracked) == bool(js.last_tracked)
     np.testing.assert_allclose(ts.pose.numpy(), np.asarray(js.pose), atol=1e-4)
     tv = ts.model_maps[7].numpy() > 0.5
@@ -140,16 +143,18 @@ def test_tracking_loss_drops_frame(stream):
 
 
 def test_step_rejects_untileable_volume(stream):
-    """The kernel path needs a volume that tiles into 128-voxel chunks
-    (the XLA path takes it: ``tests/test_torch_xla_loop.py``), and the
-    packed layout."""
+    """The kernel path needs a volume that tiles into 128-voxel chunks,
+    in either layout (the XLA path takes it:
+    ``tests/test_torch_xla_loop.py``); a tileable float32 volume steps."""
     _, frames = stream
-    st = kinfu_init(INTR, resolution=96, device="cpu")
-    with pytest.raises(ValueError):
-        kinfu_step(st, frames[0], INTR, use_pallas=True)
-    st = kinfu_init(INTR, resolution=128, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        kinfu_step(st, frames[0], INTR, use_pallas=True)
+    for dtype in (torch.int32, torch.float32):
+        st = kinfu_init(INTR, resolution=96, dtype=dtype, device="cpu")
+        with pytest.raises(ValueError):
+            kinfu_step(st, frames[0], INTR, use_pallas=True)
+    st = kinfu_init(INTR, resolution=128, device="cpu")
+    assert st.volume.data.dtype == torch.float32
+    st = kinfu_step(st, frames[0], INTR, use_pallas=True)
+    assert float(st.volume.weight.max()) == 1.0
 
 
 def test_entry_points_default_to_the_card():
@@ -191,6 +196,8 @@ def test_port_imports_no_jax():
         "import housescan_tpu_torch.kinfu.ransac, housescan_tpu_torch.kinfu.marching_cubes\n"
         "import housescan_tpu_torch.kinfu.scan_checkpoint, housescan_tpu_torch.kinfu.scan\n"
         "import housescan_tpu_torch.kinfu.raycast, housescan_tpu_torch.ops.solve6\n"
+        "import housescan_tpu_torch.ops.tsdf_cuda, housescan_tpu_torch.ops.planes_cuda\n"
+        "from housescan_tpu_torch.ops import tsdf_integrate_pallas\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'housescan_tpu.'))"
         " or m == 'housescan_tpu']\n"
         "assert not bad, bad\n"
