@@ -24,7 +24,12 @@ float32 volume. Phases, each fatal on failure:
      kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
      carve, K6 plane raycast) with its plain PyTorch version on the card
      at the shapes the main path gives it; K5 on a free list of at least
-     16 superblocks (the state after frame 20, else after frame 0);
+     16 superblocks (the state after frame 20, else after frame 0); then
+     K3's three level calls of a step, each run twice (bit-identical
+     required), held against its plain version (phase 4's bounds) and
+     timed (CUDA events, and its device kernels by the profiler), and K4
+     over the main list's every row with the count set to 0 (an empty
+     list) and with its real count;
   5. integrate the orbit at its poses with and without the free split:
      the volumes and planes must be bit-identical;
   6. run the fusion orbit again from a fresh state, timed on the host
@@ -37,8 +42,8 @@ float32 volume. Phases, each fatal on failure:
      against their plain versions on the float layout, split against
      unsplit bit-identical, K7 as the oracle of K4's persistent planes
      (a fresh extraction after a step equals them on every listed chunk:
-     valid flags identical, fields but 11 within 1e-5 where valid), then
-     the timed pass with phase 6's gates;
+     valid flags identical, fields but 11 within 1e-5 where valid), K4 on
+     the empty list, then the timed pass with phase 6's gates;
   8. the scan at full width: record the 21 frames, load them, and run
      ``scan_to_room_dir(config=Config(), write_mesh=True)`` (the kernel
      path, fusing into float32) into ``build/chip_smoke/scan_room``; the
@@ -76,12 +81,23 @@ float32 volume. Phases, each fatal on failure:
  12. time each kernel and its plain version with CUDA events, beside its
      bound: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) for this run's
      inputs (H100 SXM data sheet; each input byte read once, each output
-     byte written once); K4 and K5 on both layouts;
- 13. profile three fusion steps of the kernel path (packed) and the XLA
-     path: device kernel time per step against the timed pass's frame
-     time (the device's busy share), the launches per step, each stage's
-     device and host time a step, the top kernels, and the full tables in
-     ``build/chip_smoke/profile.txt`` and ``profile_xla.txt``.
+     byte written once); K4 and K5 on both layouts; each kernel's
+     resident blocks an SM (the occupancy calculator);
+ 13. profile three fusion steps of the kernel path (both layouts) and the
+     XLA path: device kernel time per step against the timed pass's frame
+     time (the device's busy share) and beside the readings before K3's
+     and K4's redesign, the launches per step, each stage's device and
+     host time a step, the top kernels, and the full tables in
+     ``build/chip_smoke/profile.txt``, ``profile_f32.txt`` and
+     ``profile_xla.txt``.
+
+``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
+comparisons and empty list, and phase 12's times of the main path's
+kernels (K1, K3-K6) alone, and prints no result line. It calls nothing
+that the package of an earlier commit lacks (no occupancy query), so
+copied into a checkout of that commit it reads the same calls there: the
+before and after of a kernel's redesign, in turns within one run on the
+card.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
@@ -90,6 +106,7 @@ K2, the dense-512 run for K7 and K8); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
+import bisect
 import json
 import os
 import shutil
@@ -118,6 +135,7 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+QUEUE_CYCLES = 50_000_000  # ~25 ms of device clock: cuda_ms's head start for the host
 CHUNK_VOXELS = 8 * 8 * 128
 TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
 LAYOUTS = {torch.int32: "packed", torch.float32: "float32"}
@@ -143,11 +161,16 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm call."""
+    """Mean milliseconds per call by CUDA events, after one warm call. A
+    device-side wait of QUEUE_CYCLES first lets the host queue the calls
+    ahead of the device, so a call whose host work is shorter than its
+    kernel is timed by the device's work alone (a call that waits on the
+    device, as the plain versions do, is timed as before)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -281,6 +304,134 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1):
     n_cand = int((cand[:, :, 9] > 0.5).sum())
     bounds["raycast_tiles"] = bound(cand.numel() * 4 + kr6.numel() * 4, 17 * 1024 * n_cand)
     return errs, calls, bounds, dict(n_listed=n_listed, n_sb=n_sb, n_members=n_members)
+
+
+ICP_ITERS = (10, 5, 4)  # the step's iterations a level, finest first
+
+
+def device_us(prof, reps):
+    """{device kernel: (microseconds, launches) a call} of a profile over
+    ``reps`` calls (memory copies and fills left out)."""
+    avgs = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") else "self_cuda_time_total"
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: (getattr(e, attr) / reps, e.count / reps) for e in avgs
+            if e.device_type == cuda and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def icp_level_inputs(st, depth, intr):
+    """The step's three K3 calls on ``depth`` against the state's model
+    maps, coarsest first, each level starting from the pose the one
+    before it reached, as ``icp_track`` chains them: [(level, packed
+    maps, start pose, keyword arguments)]."""
+    from housescan_tpu_torch.kinfu import icp
+    from housescan_tpu_torch.kinfu import maps as mp
+    from housescan_tpu_torch.kinfu.preprocess import build_pyramid
+    from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level
+
+    pyr = build_pyramid(depth, intr)
+    model_pyr = mp.build_map_pyramid(st.model_maps, 3)
+    tight = torch.clamp(0.5 * st.volume.voxel_size, min=0.006)
+    dists = (tight, 0.05, 0.10)
+    pose, out = st.model_pose, []
+    for level in (2, 1, 0):
+        packed = mp.pack_icp_inputs(pyr.maps[level], model_pyr[level],
+                                    mp.model_gradients(model_pyr[level]), band_h=BAND_H)
+        kw = dict(n_iters=ICP_ITERS[level], window=icp.WINDOWS[level], dist_threshold=dists[level],
+                  damping=icp.DAMPINGS[level], tight_threshold=tight)
+        out.append((level, packed, pose, kw))
+        pose = icp_level(packed, pose, st.model_pose, intr.level(level), **kw)[0]
+    return out
+
+
+def icp_levels(st, depth, intr, card, reps=20):
+    """K3's three level calls of one step: each twice on the same inputs,
+    which must agree bit for bit, and against its plain version at phase
+    4's bounds (pose 5e-5, rmse 1e-4, correspondences max(5, n/200)); each
+    call's time by CUDA events and its device kernels' time by the
+    profiler. Returns {level: (ms a call, K3 kernels' device us a call,
+    launches of K3 kernels a call)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from housescan_tpu_torch.ops.icp_cuda import icp_level, icp_level_plain
+
+    out = {}
+    for level, packed, pose, kw in icp_level_inputs(st, depth, intr):
+        cam = intr.level(level)
+
+        def call():
+            return icp_level(packed, pose, st.model_pose, cam, **kw)
+
+        first, second = call(), call()
+        qp, qr, qc = icp_level_plain(packed, pose, st.model_pose, cam, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"K3 at level {level} differs between two runs on the same inputs")
+        kp, kr, kc = first
+        err = float((kp - qp).abs().max())
+        if err > 5e-5 or abs(float(kr) - float(qr)) > 1e-4 or \
+                abs(int(kc) - int(qc)) > max(5, int(qc) // 200):
+            fail(f"K3 at level {level} differs from its plain version: pose {err}, rmse "
+                 f"{float(kr)} vs {float(qr)}, corr {int(kc)} vs {int(qc)}")
+        print(f"# K3 level {level} against its plain version: pose max abs err {err}, rmse "
+              f"{float(kr)} vs {float(qr)}, corr {int(kc)} vs {int(qc)}", flush=True)
+        ms = cuda_ms(call, reps)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        k3 = {k.split("(")[0]: v for k, v in device_us(prof, reps).items()
+              if "icp_" in k.split("(")[0]}
+        us, n_k3 = sum(v[0] for v in k3.values()), sum(v[1] for v in k3.values())
+        out[level] = (ms, us, n_k3)
+        print(f"# K3 level {level} {tuple(packed.shape)}, {kw['n_iters']} iterations: {ms:.4f} ms a "
+              f"call (CUDA events), device {' + '.join(f'{k} {v[0]:.2f}' for k, v in k3.items())} "
+              f"us a call in {n_k3:.0f} launches, the wrapper's host work {host_us:.1f} us a call; "
+              f"two runs bit-identical [{card}]", flush=True)
+    ms_step = sum(v[0] for v in out.values())
+    print(f"# K3 a step (levels 2, 1, 0): {ms_step:.4f} ms by CUDA events, device "
+          f"{sum(v[1] for v in out.values()) / 1000:.4f} ms in "
+          f"{sum(v[2] for v in out.values()):.0f} launches [{card}]", flush=True)
+    return out
+
+
+def stream_empty_list(st, depth, intr, card, reps=20):
+    """K4 over the main list's every row (one per chunk of the volume) with
+    the count set to 0, which is the cost of a launch over an empty list,
+    and with the real count. Returns (ms empty, ms listed)."""
+    from housescan_tpu_torch.ops.tsdf_stream import build_depth_mips, launch_stream_kernel
+
+    wl, _, params, _, _ = free_inputs(st.volume, st.planes, depth, st.pose, intr)
+    mips = build_depth_mips(depth)
+    data, planes = st.volume.data.clone(), st.planes.clone()
+    zero = torch.zeros_like(wl.count)
+    ms0 = cuda_ms(lambda: launch_stream_kernel(data, planes, wl.desc, zero, mips, params), reps)
+    ms1 = cuda_ms(lambda: launch_stream_kernel(data, planes, wl.desc, wl.count, mips, params), reps)
+    print(f"# K4 ({LAYOUTS[data.dtype]}) over {wl.desc.shape[0]} rows: count 0 {ms0:.4f} ms, count "
+          f"{int(wl.count[0])} {ms1:.4f} ms (CUDA events) [{card}]", flush=True)
+    return ms0, ms1
+
+
+def occupancy_report(intr, card):
+    """Each kernel's resident blocks an SM at its main-path launch (K3 at
+    the finest level's plan)."""
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.ops.icp_cuda import _plan
+    from housescan_tpu_torch.ops.raycast_tiles import _max_ct
+
+    n_tiles = -(-intr.height // 8) * -(-intr.width // 128)
+    args = {"raycast_tiles": _max_ct(n_tiles),
+            "icp_level": _plan(-(-intr.height // 32) * 32, -(-intr.width // 128) * 128,
+                               torch.cuda.current_device()).shared_pixels}
+    occ = {name: cuda_lib.occupancy(name, args.get(name, 0)) for name in cuda_lib.OCCUPANCY}
+    print(f"# resident blocks an SM: {json.dumps(occ)} [{card}]", flush=True)
+    return occ
 
 
 def _tw(data):
@@ -559,15 +710,27 @@ def profile_steps(intr, poses, frames, res, device, out_path, n=3, dtype=torch.i
     avgs = prof.key_averages()
     # named self_device_time_total in newer PyTorch, self_cuda_time_total before
     attr = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") else "self_cuda_time_total"
-    total_attr = attr.replace("self_", "")
     cuda = torch.autograd.DeviceType.CUDA
     # the stage ranges also appear on the device timeline: not kernels
     kernels = [e for e in avgs if e.device_type == cuda and not e.key.startswith("stage:")]
     dev_ms = sum(getattr(e, attr) for e in kernels) / 1000.0 / n
     launches = sum(e.count for e in kernels) / n
-    # the host side of a range: its wall time, and the device time of the
-    # kernels launched inside it
-    stages = {e.key[len("stage:"):]: (getattr(e, total_attr) / 1000.0 / n, e.cpu_time_total / 1000.0 / n)
+    # a stage's device time: the kernels that start on the device timeline
+    # between its range's start there and the next stage's (the profiler
+    # attributes to a range only the kernels of PyTorch operators, not
+    # those launched through ctypes; glue kernels after a stage count with
+    # it); its host time: the range's wall time
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    marks = sorted((e.time_range.start, e.key[len("stage:"):]) for e in evs
+                   if e.key.startswith("stage:"))
+    starts = [m[0] for m in marks]
+    dev_us = {name: 0.0 for _, name in marks}
+    for e in evs:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if not e.key.startswith("stage:") and i >= 0:
+            dev_us[marks[i][1]] += getattr(e, attr)
+    stages = {e.key[len("stage:"):]: (dev_us.get(e.key[len("stage:"):], 0.0) / 1000.0 / n,
+                                      e.cpu_time_total / 1000.0 / n)
               for e in avgs if e.key.startswith("stage:") and e.device_type != cuda}
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
@@ -913,6 +1076,86 @@ def run_dense(intr, poses, frames, device, card):
                 launches=launches)
 
 
+# CUDA-event calls a timing (kernel, plain version)
+REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
+        "tsdf_free": (20, 1), "raycast_tiles": (50, 2), "solve6": (200, 3),
+        "planes_extract": (20, 1), "tsdf_dense": (10, 1)}
+
+
+def warm_states(intr, poses, frames, device, dtype):
+    """(the state after a warm orbit on a fresh ``dtype`` volume, the state
+    after frame 0 alone, the warm pass's seconds)."""
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+
+    st, warm_s, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+    st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                     dtype=dtype, device=device)
+    return st, kinfu_step(st0, frames[0], intr), warm_s
+
+
+def box_kernels(intr, poses, frames, device, card):
+    """Phase 4 on the packed volume: each main-path kernel against its
+    plain version, K3's level calls and K4 on an empty list. Returns
+    (errors, timing calls, bounds, list sizes, warm pass seconds)."""
+    pose1 = torch.from_numpy(poses[1]).to(device)
+    st, st0, warm_s = warm_states(intr, poses, frames, device, torch.int32)
+    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1)
+    print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
+    icp_levels(st, frames[N_FRAMES], intr, card)
+    stream_empty_list(st, frames[N_FRAMES], intr, card)
+    return errs, calls, bounds, sizes, warm_s
+
+
+def f32_kernels(intr, poses, frames, device, card):
+    """Phase 7's kernels on the float32 volume: K4 and K5 against their
+    plain versions, K4 on an empty list. Returns ({kernel: its compare_*
+    result}, the warm state, warm pass seconds)."""
+    pose1 = torch.from_numpy(poses[1]).to(device)
+    st, st0, warm_f = warm_states(intr, poses, frames, device, torch.float32)
+    f32 = {"tsdf_stream": compare_stream(st, frames[N_FRAMES], intr),
+           "tsdf_free": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr)}
+    stream_empty_list(st, frames[N_FRAMES], intr, card)
+    return f32, st, warm_f
+
+
+def time_kernels(names, calls, bounds, card, launches=None):
+    """Phase 12: each kernel of ``names`` and its plain version by CUDA
+    events, beside its bound (and its launches on its path's run, where
+    given). Returns {kernel: (ms, plain ms)}."""
+    out = {}
+    for name in names:
+        k_fn, q_fn = calls[name]
+        ms, plain_ms = cuda_ms(k_fn, REPS[name][0]), cuda_ms(q_fn, REPS[name][1])
+        out[name] = (ms, plain_ms)
+        bound_ms, bound_by = bounds[name]
+        where = "" if launches is None else \
+            f", {launches[name]} launches on its path's run of {N_FRAMES + 1} frames"
+        print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.3e} ms "
+              f"({bound_by}){where} [{card}]", flush=True)
+    return out
+
+
+def time_f32(f32, card):
+    """Phase 12 for K4 and K5 on the float32 volume."""
+    for name, (err, (k_fn, q_fn), (bound_ms, bound_by), *_) in f32.items():
+        ms = cuda_ms(k_fn, REPS[name][0])
+        plain_ms = cuda_ms(q_fn, REPS[name][1])
+        print(f"# {name} (float32 volume, box-{RES}-f32): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}), max abs err {err} "
+              f"[{card}]", flush=True)
+
+
+def probe(intr, poses, frames, device, card):
+    """``--probe``: phase 4, phase 7's kernels and phase 12's times of
+    the main path's kernels, on both layouts."""
+    errs, calls, bounds, _, _ = box_kernels(intr, poses, frames, device, card)
+    f32, st, _ = f32_kernels(intr, poses, frames, device, card)
+    del st
+    torch.cuda.empty_cache()
+    time_kernels(list(calls), calls, bounds, card)
+    time_f32(f32, card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -922,7 +1165,6 @@ def main() -> None:
     os.makedirs(OUT, exist_ok=True)
 
     from housescan_tpu_torch.geometry.transform import full_fp32_matmul
-    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
     full_fp32_matmul()
@@ -934,19 +1176,12 @@ def main() -> None:
         print(f"# ptxas: {ln}", flush=True)
 
     intr, poses, frames = workload(device)
-    pose1 = torch.from_numpy(poses[1]).to(device)
-
-    def warm_states(dtype):
-        st, warm_s, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
-        st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
-                         dtype=dtype, device=device)
-        return st, kinfu_step(st0, frames[0], intr), warm_s
+    if sys.argv[1:] == ["--probe"]:
+        probe(intr, poses, frames, device, card)
+        return
 
     # 4. box-512 (packed): warm orbit, then each kernel against its plain version
-    st, st0, warm_s = warm_states(torch.int32)
-    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1)
-    print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
-    del st, st0
+    errs, calls, bounds, sizes, warm_s = box_kernels(intr, poses, frames, device, card)
 
     # 5. split and unsplit integrates of the orbit
     same, observed = split_orbit_identical(intr, poses, frames, device, torch.int32)
@@ -961,10 +1196,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 7. box-512-f32: the kernel path on the float32 volume
-    st, st0, warm_f = warm_states(torch.float32)
-    f32 = {}
-    f32["tsdf_stream"] = compare_stream(st, frames[N_FRAMES], intr)
-    f32["tsdf_free"] = compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr)
+    f32, st, warm_f = f32_kernels(intr, poses, frames, device, card)
     same, observed = split_orbit_identical(intr, poses, frames, device, torch.float32)
     if not same:
         fail("box-512-f32: the orbit integrated with the free split differs from the unsplit one")
@@ -973,7 +1205,7 @@ def main() -> None:
     diff7, n7, v7 = k7_oracle(st, frames[N_FRAMES], intr)
     print(f"# box-{RES}-f32 K7 as the oracle of K4's planes after a step: {n7} listed chunks, "
           f"{v7} valid sub-blocks, valid flags identical, fields max diff {diff7}", flush=True)
-    del st, st0
+    del st
     torch.cuda.empty_cache()
     st, secs_f = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
     del st
@@ -998,53 +1230,43 @@ def main() -> None:
         {"errs": errs, "calls": calls, "bounds": bounds}[key].update(dense[key])
     torch.cuda.empty_cache()
 
-    # 12. kernel vs plain times, CUDA events
-    reps = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
-            "tsdf_free": (20, 1), "raycast_tiles": (50, 2), "solve6": (200, 3),
-            "planes_extract": (20, 1), "tsdf_dense": (10, 1)}
-    steps = N_FRAMES + 1
+    # 12. kernel vs plain times, CUDA events; resident blocks an SM
+    occupancy_report(intr, card)
     # launches: the kernel path's from the scan, K2's from the timed xla-480
     # pass, K7's and K8's from the dense-512 run
     path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"],
                          planes_extract=dense["launches"]["planes_extract"],
                          tsdf_dense=dense["launches"]["tsdf_dense"])
+    times = time_kernels(list(KERNELS), calls, bounds, card, path_launches)
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        k_fn, q_fn = calls[name]
-        ms = cuda_ms(k_fn, reps[name][0])
-        plain_ms = cuda_ms(q_fn, reps[name][1])
         bound_ms, bound_by = bounds[name]
-        print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.3e} ms "
-              f"({bound_by}), {path_launches[name]} launches on its path's run of {steps} frames "
-              f"[{card}]", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": path_launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
-    for name, (err, (k_fn, q_fn), (bound_ms, bound_by), *_) in f32.items():
-        ms = cuda_ms(k_fn, reps[name][0])
-        plain_ms = cuda_ms(q_fn, reps[name][1])
-        print(f"# {name} (float32 volume, box-{RES}-f32): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}), max abs err {err} "
-              f"[{card}]", flush=True)
+                     "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    time_f32(f32, card)
     print(f"# sizes: K4 {sizes['n_listed']} listed chunks (packed), {f32['tsdf_stream'][3]} "
           f"(float32); K5 {sizes['n_sb']} superblocks / {sizes['n_members']} member chunks "
           f"(packed), {f32['tsdf_free'][3]} / {f32['tsdf_free'][4]} (float32)", flush=True)
     del dense
     torch.cuda.empty_cache()
 
-    # 13. where the device time goes, on each path
-    for tag, res, secs_, kw, name in (
-            (f"box-{RES}", RES, secs, {}, "profile.txt"),
-            (f"box-{RES}-f32", RES, secs_f, dict(dtype=torch.float32), "profile_f32.txt"),
+    # 13. where the device time goes, on each path, beside the readings
+    # before K3's and K4's redesign (NVIDIA H100 80GB HBM3, 700.00 W)
+    for tag, res, secs_, kw, name, before in (
+            (f"box-{RES}", RES, secs, {}, "profile.txt", (5.242, 2553)),
+            (f"box-{RES}-f32", RES, secs_f, dict(dtype=torch.float32), "profile_f32.txt",
+             (5.304, 2553)),
             (f"xla-{XLA_RES}", XLA_RES, xla["secs"], dict(dtype=torch.float32, use_pallas=False),
-             "profile_xla.txt")):
+             "profile_xla.txt", (85.983, 16897))):
         dev_ms, n_launch, top, stages, k2_us = profile_steps(intr, poses, frames, res, device,
                                                              os.path.join(OUT, name), **kw)
         frame_ms = secs_ / N_FRAMES * 1000.0
         print(f"# profile {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
-              f"launches/step; timed pass {frame_ms:.3f} ms/frame -> device busy "
-              f"{dev_ms / frame_ms * 100:.1f}% [{card}]", flush=True)
+              f"launches/step (before the redesign: {before[0]} ms in {before[1]}); timed pass "
+              f"{frame_ms:.3f} ms/frame -> device busy {dev_ms / frame_ms * 100:.1f}% [{card}]",
+              flush=True)
         for stage, (d_ms, h_ms) in stages.items():
             print(f"# profile {tag}: stage {stage}: device {d_ms:.3f} ms/step, host {h_ms:.3f} "
                   f"ms/step", flush=True)

@@ -60,3 +60,8 @@ extern "C" int hs_bilateral(const float* depth, float* out, int h, int w, int ra
                                                              inv_9sd2);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks an SM: out[0] the filter at its 32 x 8 block.
+extern "C" int hs_bilateral_occupancy(int, int* out) {
+  return hs_occupancy(bilateral_kernel, 256, 0, out);
+}

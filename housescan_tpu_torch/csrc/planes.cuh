@@ -7,9 +7,10 @@
 // in float32.
 //
 // A fit reads its voxels through an accessor tw(ix, iy, z, t, w); the
-// chunk kernels keep the chunk in shared memory (HsSmemChunk), with one
-// slice of z-halo where the +z crossings run on into the next chunk (K8's
-// columns). Where the sub-blocks lie and what they are called come in as
+// chunk kernels keep the chunk in shared memory, as floats (HsSmemChunk,
+// K7, K8; with one slice of z-halo where the +z crossings run on into the
+// next chunk, K8's columns) or in the volume's own cells (HsStagedChunk,
+// K4). Where the sub-blocks lie and what they are called come in as
 // HsFitGeom, so one fit serves chunk ids (K4, K7) and column ids (K8).
 #pragma once
 
@@ -32,6 +33,16 @@ struct HsSmemChunk {
   }
 };
 
+// A chunk staged in shared memory in its volume's own cells (K4): read as
+// Store::staged_load unpacks them, which is what ``store`` returned.
+template <class Store>
+struct HsStagedChunk {
+  const void* s;
+  __device__ __forceinline__ void operator()(int ix, int iy, int z, float& tv, float& wv) const {
+    Store::staged_load(s, (ix * 8 + iy) * HS_STAGE_ROW + z, tv, wv);
+  }
+};
+
 // Where a chunk's sub-blocks lie: sub-block s has id sid_base + sub and its
 // first voxel at z = z_base + 8 sub (sub = s for a chunk, the column's
 // sub-block index for K8).
@@ -42,6 +53,10 @@ struct HsFitGeom {
   float vs, ox, oy, oz, min_count;
 };
 
+__device__ __forceinline__ float hs_wt(float wa, float wb) {
+  return hs_clamp_max(fminf(wa, wb), 8.0f) * 0.125f;
+}
+
 __device__ __forceinline__ float hs_alpha(float t0, float t1) {
   const float denom = t0 - t1;
   const bool ok = fabsf(denom) > 1e-12f;
@@ -49,10 +64,21 @@ __device__ __forceinline__ float hs_alpha(float t0, float t1) {
   return hs_clamp_max(hs_clamp_min(a, 0.0f), 1.0f);
 }
 
-// Moment terms of one crossing family at one voxel, added into acc[0..10].
-__device__ __forceinline__ void hs_crossing_terms(double* acc, float mk, float wgt, float px,
-                                                  float py, float pz) {
-  const float m = mk * wgt;
+// Moment terms of the crossing from a voxel (tsdf tv, weight wv) to its
+// neighbour (tn, wn) along one axis, at (px, py, pz) plus the crossing's
+// fraction along that axis (``axis`` 0, 1, 2 = x, y, z), added into
+// acc[0..10]. Without a crossing every term is a zero, which adds nothing
+// to the exact double sums: skipped, so most voxels do no double work and
+// no division.
+__device__ __forceinline__ void hs_crossing_terms(double* acc, bool crossing, float tv, float tn,
+                                                  float wv, float wn, float px, float py,
+                                                  float pz, int axis) {
+  if (!crossing) return;
+  const float a = hs_alpha(tv, tn);
+  if (axis == 0) px = px + a;
+  if (axis == 1) py = py + a;
+  if (axis == 2) pz = pz + a;
+  const float m = hs_wt(wv, wn);  // the crossing flag (1) times its weight
   acc[0] += (double)m;
   acc[1] += (double)(m * px);
   acc[2] += (double)(m * py);
@@ -63,11 +89,7 @@ __device__ __forceinline__ void hs_crossing_terms(double* acc, float mk, float w
   acc[7] += (double)(m * px * py);
   acc[8] += (double)(m * px * pz);
   acc[9] += (double)(m * py * pz);
-  acc[10] += (double)mk;
-}
-
-__device__ __forceinline__ float hs_wt(float wa, float wb) {
-  return hs_clamp_max(fminf(wa, wb), 8.0f) * 0.125f;
+  acc[10] += 1.0;
 }
 
 // Moments of voxel (ix, iy, z); the +z crossing counts only for z < z_lim
@@ -83,33 +105,31 @@ __device__ __forceinline__ void hs_voxel_moments(double* acc, const Tw& tw, int 
   {  // +z neighbour
     float tn, wn;
     tw(ix, iy, z < z_lim ? z + 1 : z, tn, wn);
-    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
-                     (z < z_lim ? 1.0f : 0.0f);
-    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf, zz + hs_alpha(tv, tn));
+    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && z < z_lim, tv,
+                      tn, wv, wn, x, yf, zz, 2);
   }
   {  // +y neighbour
     float tn, wn;
     tw(ix, iy < 7 ? iy + 1 : iy, z, tn, wn);
-    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
-                     (iy < 7 ? 1.0f : 0.0f);
-    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x, yf + hs_alpha(tv, tn), zz);
+    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && iy < 7, tv, tn,
+                      wv, wn, x, yf, zz, 1);
   }
   {  // +x neighbour
     float tn, wn;
     tw(ix < 7 ? ix + 1 : ix, iy, z, tn, wn);
-    const float mk = (obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) ? 1.0f : 0.0f) *
-                     (ix < 7 ? 1.0f : 0.0f);
-    hs_crossing_terms(acc, mk, hs_wt(wv, wn), x + hs_alpha(tv, tn), yf, zz);
+    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && ix < 7, tv, tn,
+                      wv, wn, x, yf, zz, 0);
   }
-  const float band = (obs && fabsf(tv) < 0.99f) ? 1.0f : 0.0f;
-  acc[11] += (double)band;
-  acc[12] += (double)(band * tv);
-  acc[13] += (double)(band * x);
-  acc[14] += (double)(band * yf);
-  acc[15] += (double)(band * zz);
-  acc[16] += (double)(band * x * tv);
-  acc[17] += (double)(band * yf * tv);
-  acc[18] += (double)(band * zz * tv);
+  // the band terms (the band flag times each; off the band zeros, skipped)
+  if (!(obs && fabsf(tv) < 0.99f)) return;
+  acc[11] += 1.0;
+  acc[12] += (double)tv;
+  acc[13] += (double)x;
+  acc[14] += (double)yf;
+  acc[15] += (double)zz;
+  acc[16] += (double)(x * tv);
+  acc[17] += (double)(yf * tv);
+  acc[18] += (double)(zz * tv);
 }
 
 struct HsInv3 {

@@ -92,3 +92,10 @@ extern "C" int hs_planes_extract(void* vol, int layout, float* planes, int nx, i
                      params, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// Resident blocks an SM: out[0] packed, out[1] float32.
+extern "C" int hs_planes_extract_occupancy(int, int* out) {
+  const int smem = 2 * PE_VOX * (int)sizeof(float);
+  const int e = hs_occupancy(planes_extract_kernel<HsPacked>, PE_THREADS, smem, out);
+  return e ? e : hs_occupancy(planes_extract_kernel<HsPlanar<float>>, PE_THREADS, smem, out + 1);
+}

@@ -97,3 +97,9 @@ extern "C" int hs_raycast_tiles(const float* cand, int n_tiles, int max_ct, cons
       cand, max_ct, params, out, h, w_pad, n_ut);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks an SM: out[0] at ``max_ct`` candidates a tile.
+extern "C" int hs_raycast_tiles_occupancy(int max_ct, int* out) {
+  return hs_occupancy(raycast_tiles_kernel, RC_THREADS, max_ct * RC_PREP * (int)sizeof(float),
+                      out);
+}

@@ -24,3 +24,6 @@ extern "C" int hs_solve6(const float* abp, float* out, float damping, float max_
   solve6_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(abp, out, damping, max_step);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks an SM: out[0] the one-thread solve.
+extern "C" int hs_solve6_occupancy(int, int* out) { return hs_occupancy(solve6_kernel, 1, 0, out); }

@@ -293,3 +293,10 @@ extern "C" int hs_tsdf_dense(float* vol, int nx, int ny, int nz, const float* mi
   tsdf_dense_fit_kernel<<<n_chunks, TD_THREADS, smem, s>>>(st, planes, ny, nz, params);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks an SM: out[0] the integrate, out[1] the column fit.
+extern "C" int hs_tsdf_dense_occupancy(int, int* out) {
+  const int e = hs_occupancy(tsdf_dense_kernel<HsPlanar<float>>, TD_THREADS, 0, out);
+  return e ? e : hs_occupancy(tsdf_dense_fit_kernel<HsPlanar<float>>, TD_THREADS,
+                              2 * 64 * TD_ZS * (int)sizeof(float), out + 1);
+}

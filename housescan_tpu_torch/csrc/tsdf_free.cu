@@ -135,3 +135,9 @@ extern "C" int hs_tsdf_free(void* vol, int layout, float* planes, const int* bit
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
+
+// Resident blocks an SM: out[0] packed, out[1] float32.
+extern "C" int hs_tsdf_free_occupancy(int, int* out) {
+  const int e = hs_occupancy(tsdf_free_kernel<HsPacked>, TF_THREADS, 0, out);
+  return e ? e : hs_occupancy(tsdf_free_kernel<HsPlanar<float>>, TF_THREADS, 0, out + 1);
+}

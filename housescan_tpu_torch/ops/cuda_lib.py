@@ -62,9 +62,13 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # depth, out, h, w, radius, sigma_space, sigma_depth, stream
     "hs_bilateral": [_P, _P, _I, _I, _I, _D, _D, _P],
-    # packed, hp, wp, params, pose0, state, partials, n_iters, stream
-    "hs_icp_level": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
-    # vol, layout, planes, desc, count, n_desc, nx, ny, nz, mip0, h0, w0,
+    # packed, hp, wp, pixels a block, of them in shared memory, host
+    # params[32], prev pose, dist gate, tight gate (device scalars or
+    # null), pose0, state + partials, n_iters, stream
+    "hs_icp_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    # out: SM count, shared memory a block may opt into
+    "hs_device_limits": [_P],
+    # vol, layout, planes, desc, count, grid, nx, ny, nz, mip0, h0, w0,
     # mip1, h1, w1, mip2, h2, w2, l3, h3, w3, params, sat_w, stream
     "hs_tsdf_stream": [
         _P, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -88,6 +92,20 @@ _SIGNATURES = {
     # abp, out, damping, max_step, stream
     "hs_solve6": [_P, _P, _F, _F, _P],
 }
+# Each kernel's occupancy query (arg, out): the device kernels it reports,
+# in order, at the launch configuration of its wrapper.
+OCCUPANCY = {
+    "bilateral": ("hs_bilateral_occupancy", ("bilateral_kernel",)),
+    "icp_level": ("hs_icp_occupancy", ("icp_level_kernel",)),
+    "tsdf_stream": ("hs_tsdf_stream_occupancy", ("packed", "float32")),
+    "tsdf_free": ("hs_tsdf_free_occupancy", ("packed", "float32")),
+    "raycast_tiles": ("hs_raycast_tiles_occupancy", ("raycast_tiles_kernel",)),
+    "solve6": ("hs_solve6_occupancy", ("solve6_kernel",)),
+    "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32")),
+    "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel", "tsdf_dense_fit_kernel")),
+}
+for _fn, _ in OCCUPANCY.values():
+    _SIGNATURES[_fn] = [_I, _P]
 
 _lib = None
 
@@ -154,6 +172,31 @@ def load():
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def occupancy(name: str, arg: int = 0) -> dict:
+    """{device kernel: resident blocks an SM} of kernel ``name`` (``arg``:
+    K3's pixels a block held in shared memory, K6's candidates a tile,
+    else unused), from the
+    occupancy calculator."""
+    fn, labels = OCCUPANCY[name]
+    out = (ctypes.c_int * len(labels))()
+    check(getattr(load(), fn)(arg, out), fn)
+    return dict(zip(labels, out))
+
+
+_limits = {}
+
+
+def device_limits() -> tuple:
+    """(SM count, shared memory bytes a block may opt into) of the current
+    CUDA device, queried once."""
+    dev = torch.cuda.current_device()
+    if dev not in _limits:
+        out = (ctypes.c_int * 2)()
+        check(load().hs_device_limits(out), "hs_device_limits")
+        _limits[dev] = (out[0], out[1])
+    return _limits[dev]
 
 
 def stream_ptr() -> int:

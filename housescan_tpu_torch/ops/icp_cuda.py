@@ -13,24 +13,30 @@ vertex, 3-5 live normal (camera), 6-8 model vertex, 9-11 model normal
 (world), 12 model valid, 13-15 d(model v)/du, 16-18 d(model v)/dv. Rows
 and columns beyond the true image are zero.
 
-CUDA kernel ``csrc/icp.cu``. The TPU grid (n_iters, n_bands) ran in
-order with the pose in SMEM; on the GPU each iteration is two launches
-on the stream with no host synchronisation: (a) one thread per pixel
-computes the residual and writes its block's 30 partial sums (the 29
-plus the visible-model count the gate needs) to a scratch buffer; (b) one
-block reduces the partials in a fixed order (in double), runs the gate
-state machine and the solve (``csrc/solve6.cuh``) and updates the pose in
-a device state buffer. Launches after convergence return at once. There
-are no float atomics, so the card repeats itself bit for bit. Bound: (a)
-reads the 19 x 4 B x 307 K pixels = 23 MB of the finest level per
-iteration (~8 us at 3.35 TB/s, mostly L2-resident); (b) is a single
-block's latency, ~10 us; so a level costs a few tens of microseconds per
-iteration, dominated by launch and reduction latency.
+CUDA kernel ``csrc/icp.cu``: ONE cooperative, persistent launch a level
+(replacing the TPU grid (n_iters, n_bands), which ran in order with the
+pose in SMEM). ``icp_plan`` cuts the level's pixels into one contiguous
+slice per SM; each block copies its slice's 19 rows into shared memory
+once (as many of its pixels as fit there; a larger slice reads the rest
+from global memory every iteration) and runs every iteration from
+there: its 30 partial sums (the 29
+plus the visible-model count the gate needs) in a fixed order, one grid
+sync, then every block sums all blocks' partials in double in the same
+order and runs the gate state machine and the solve (``csrc/solve6.cuh``)
+itself, so all blocks hold the same pose bit for bit and leave the loop
+together. No float atomics, so the card repeats itself bit for bit; no
+host synchronisation. The wrapper raises where the device cannot hold
+even a warp's pixels a block in shared memory: there is no other form of
+the kernel. Bound: the maps read once, 23 MB at 640 x 480 (7 us at 3.35
+TB/s).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,39 +48,94 @@ N_ROWS = 19
 BAND_H = 32
 N_ACC = 29  # 21 A-upper + 6 b + sq + n_corr
 N_PARTIAL = 30  # + the visible-model-pixel count
-ICP_BLOCK = 256  # threads per block of kernel (a), csrc/icp.cu
 STATE_LEN = 32
+PLAN_ALIGN = 32  # pixels a block: a multiple of this (16-byte rows, whole warps)
+# Pixels a block takes at least (two a thread): below it a level's
+# per-iteration grid sync and cross-block sums cost more than its pixels.
+PLAN_MIN_SLICE = 1024
+STATIC_SMEM = 4096  # the level kernel's static shared memory, rounded up
+H100_SMEM_OPTIN = 232448  # shared memory an H100 block may opt into
 MAX_STEP = 0.3  # largest twist per iteration (rad / m)
 CORR_FRAC = 0.1  # correspondence collapse: n_corr < CORR_FRAC * visible model pixels
 HUBER = 0.02
 
 
-def _params(prev_pose, intr, window, dist_threshold, angle_threshold, damping,
-            tight_threshold):
-    """The 32-float parameter row of the reference kernel."""
+class IcpPlan(NamedTuple):
+    blocks: int
+    pixels_per_block: int
+    shared_pixels: int  # of them held in shared memory (the first ones)
+    smem_bytes: int  # dynamic (the held pixels' 19 rows) + static
+
+
+def icp_plan(hp: int, wp: int, n_sms: int, max_smem: int = H100_SMEM_OPTIN) -> IcpPlan:
+    """K3's grid for a (hp, wp) level on ``n_sms`` SMs: one contiguous slice
+    of pixels per block, at most one block per SM and at least
+    PLAN_MIN_SLICE pixels a block, the 19 rows of as many of each slice's
+    pixels as ``max_smem`` bytes hold in shared memory (all of them at
+    640 x 480 on an H100). Raises ValueError where ``max_smem`` cannot hold
+    PLAN_ALIGN pixels."""
+    n = hp * wp
+    ppb = max(-(-n // n_sms), PLAN_MIN_SLICE)
+    ppb = -(-ppb // PLAN_ALIGN) * PLAN_ALIGN
+    room = (max_smem - STATIC_SMEM) // (N_ROWS * 4) // PLAN_ALIGN * PLAN_ALIGN
+    if room < PLAN_ALIGN:
+        raise ValueError(f"icp_level: {max_smem} bytes of shared memory a block cannot hold "
+                         f"{PLAN_ALIGN} pixels' maps beside the kernel's {STATIC_SMEM}")
+    held = min(ppb, room)
+    return IcpPlan(-(-n // ppb), ppb, held, held * N_ROWS * 4 + STATIC_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(hp: int, wp: int, device: int) -> IcpPlan:
+    """``icp_plan`` on CUDA device ``device``, its slice resident on an SM."""
+    with torch.cuda.device(device):
+        n_sms, max_smem = cuda_lib.device_limits()
+        plan = icp_plan(hp, wp, n_sms, max_smem)
+        if cuda_lib.occupancy("icp_level", plan.shared_pixels)["icp_level_kernel"] < 1:
+            raise ValueError(f"icp_level: a block holding {plan.shared_pixels} pixels cannot be "
+                             f"resident on an SM")
+    return plan
+
+
+def _scalars(intr, window, dist_threshold, angle_threshold, damping, tight_threshold):
+    """Entries 12-31 of the reference kernel's parameter row, the squared
+    gates (17, 24) as given: a float, or a tensor taken in float32."""
     gate = 1.5 if window == 0 else float(window)
     corr_frac = CORR_FRAC
     if tight_threshold is None:
         tight_threshold = dist_threshold
         corr_frac = 0.0  # never widen (the gates are equal anyway)
-    return cuda_lib.f32_vector(
-        [
-            prev_pose[:3, :3],
-            prev_pose[3, :3],
-            intr.fx, intr.fy, intr.cx, intr.cy,
-            gate,
-            dist_threshold * dist_threshold,
-            float(math.sin(angle_threshold)) ** 2,
-            HUBER,
-            damping,
-            MAX_STEP,
-            intr.height, intr.width,
-            tight_threshold * tight_threshold,
-            corr_frac,
-            0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
-        ],
-        prev_pose.device,
-    )
+    return [
+        intr.fx, intr.fy, intr.cx, intr.cy,
+        gate,
+        dist_threshold,
+        float(math.sin(angle_threshold)) ** 2,
+        HUBER,
+        damping,
+        MAX_STEP,
+        intr.height, intr.width,
+        tight_threshold,
+        corr_frac,
+        0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+    ]
+
+
+GATES = (5, 12)  # the squared gates' places in _scalars
+
+
+def _square(x):
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.float32)
+    return x * x
+
+
+def _params(prev_pose, intr, window, dist_threshold, angle_threshold, damping,
+            tight_threshold):
+    """The 32-float parameter row of the reference kernel."""
+    sc = _scalars(intr, window, dist_threshold, angle_threshold, damping, tight_threshold)
+    for g in GATES:
+        sc[g] = _square(sc[g])
+    return cuda_lib.f32_vector([prev_pose[:3, :3], prev_pose[3, :3], *sc], prev_pose.device)
 
 
 def _level_sums(m, pose16, p, dist2, py, px, in_img):
@@ -226,25 +287,58 @@ def icp_level(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
     _, hp, wp = packed.shape
     if hp % BAND_H or wp % 128 or packed.shape[0] != N_ROWS:
         raise ValueError(f"icp_level: packed must be (19, 32k, 128k), got {tuple(packed.shape)}")
+    if tuple(prev_pose.shape) != (4, 4):
+        raise ValueError(f"icp_level: prev_pose must be (4, 4), got {tuple(prev_pose.shape)}")
     if packed.device.type == "cpu":
         cuda_lib.plain_counts["icp_level"] += 1
         return icp_level_plain(packed, pose, prev_pose, intr, n_iters, window,
                                dist_threshold, angle_threshold, damping,
                                tight_threshold)
-    params = _params(prev_pose, intr, window, dist_threshold, angle_threshold,
-                     damping, tight_threshold)
-    pose0 = pose.reshape(16).to(torch.float32).contiguous()
-    cuda_lib.require_cuda("icp_level", packed, params, pose0)
-    if pose0.numel() != 16:
-        raise ValueError("icp_level: pose must be 4x4")
-    n_blocks = -(-(hp * wp) // ICP_BLOCK)
-    state = torch.empty(STATE_LEN, dtype=torch.float32, device=packed.device)
-    partials = torch.empty(n_blocks * N_PARTIAL, dtype=torch.float32, device=packed.device)
-    lib = cuda_lib.load()
-    rc = lib.hs_icp_level(
-        packed.data_ptr(), hp, wp, params.data_ptr(), pose0.data_ptr(),
-        state.data_ptr(), partials.data_ptr(), n_iters, cuda_lib.stream_ptr(),
+    state = icp_level_state(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
+                            angle_threshold, damping, tight_threshold)
+    return state[:16].view(4, 4), state[16], state[22].view(torch.int32)
+
+
+def icp_level_state(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
+                    window: int = 0, dist_threshold=0.10,
+                    angle_threshold: float = 0.5236, damping: float = 3e-4,
+                    tight_threshold=None):
+    """K3's launch on CUDA tensors: the level kernel's (32,) state (0-15
+    pose, 16 rmse, 17 n_corr, 18 iterations run, 19 converged, 20
+    visible-model pixels, 21 widen_until, 22 n_corr as int32 bits), with
+    the blocks' partial sums of two iterations behind it. Raises
+    ValueError where the device cannot hold the level's plan or
+    ``prev_pose`` is not (4, 4).
+
+    The host work is kept to a few calls: the parameter row's host values
+    go to the kernel by value, and the previous pose and any gate given as
+    a tensor are read on the device."""
+    _, hp, wp = packed.shape
+    dev = packed.device
+    pose0 = pose.reshape(16).to(torch.float32)
+    if tuple(prev_pose.shape) != (4, 4):
+        raise ValueError(f"icp_level: prev_pose must be (4, 4), got {tuple(prev_pose.shape)}")
+    prev = prev_pose.to(torch.float32).contiguous()  # read as row-major (4, 4)
+    cuda_lib.require_cuda("icp_level", packed, pose0, prev)
+    sc = _scalars(intr, window, dist_threshold, angle_threshold, damping, tight_threshold)
+    gates = []
+    for g in GATES:
+        if isinstance(sc[g], torch.Tensor):
+            t = sc[g].to(device=dev, dtype=torch.float32)
+            gates.append(t)
+            sc[g] = 0.0
+        else:
+            gates.append(None)
+            sc[g] = sc[g] * sc[g]
+    host = (ctypes.c_float * 32)(*([0.0] * 12 + sc))
+    plan = _plan(hp, wp, dev.index)
+    state = torch.empty(STATE_LEN + 2 * plan.blocks * N_PARTIAL, dtype=torch.float32, device=dev)
+    rc = cuda_lib.load().hs_icp_level(
+        packed.data_ptr(), hp, wp, plan.pixels_per_block, plan.shared_pixels, host,
+        prev.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in gates),
+        pose0.data_ptr(), state.data_ptr(), n_iters, cuda_lib.stream_ptr(),
     )
     cuda_lib.check(rc, "hs_icp_level")
     cuda_lib.launch_counts["icp_level"] += 1
-    return state[:16].reshape(4, 4), state[16], state[17].to(torch.int32)
+    return state

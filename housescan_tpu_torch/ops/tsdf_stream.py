@@ -44,15 +44,17 @@ branch would write. The free carve runs first; K4 then runs on the
 shrunken main list. The two lists are disjoint, so the split is
 bit-identical to the unsplit integrate.
 
-CUDA kernel of K4, ``csrc/tsdf_stream.cu``: one block of 512 threads per listed
-chunk (the grid spans every chunk; blocks past the device-side count
-return at once, so the host never waits on the list length). The block
-reads its 8192 voxels once (32 KB packed, 64 KB float32), gathers depth
-from the L2-resident mips, writes the voxels back, keeps the updated
-tsdf/weight in 64 KB of dynamic shared memory, and one warp per
-sub-block fits the planes from there. Bound: device-memory traffic of 64
-KB (packed) or 128 KB (float32) per listed chunk, plus the plane fit's
-~10 float ops per voxel.
+CUDA kernel of K4, ``csrc/tsdf_stream.cu``: a persistent grid of
+``stream_grid(n_desc, resident, n_sms)`` blocks of 512 threads (at most
+the blocks an SM holds at once times the SMs) walks the listed chunks,
+block b taking rows b, b + grid, ... below the device-side count, so the
+host never waits on the list length and no block is spent on an
+unlisted chunk. A block stages its chunk in shared memory with Hopper's
+asynchronous bulk copies, two chunks deep (the next one arrives while
+this one is integrated), updates it in place as it writes the voxels
+back, and one warp per sub-block fits the planes from the staged cells.
+Bound: device-memory traffic of 64 KB (packed) or 128 KB (float32) per
+listed chunk, plus the plane fit's ~10 float ops per voxel.
 
 CUDA kernel of K5, ``csrc/tsdf_free.cu``: one block of 512 threads per
 (listed superblock, member slot); a block past the device-side count or
@@ -63,6 +65,8 @@ non-member chunks are never touched (the TPU kernel copies them through).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -422,6 +426,22 @@ def tsdf_integrate_stream(
     return vol, planes
 
 
+def stream_grid(n_desc: int, resident: int, n_sms: int) -> int:
+    """K4's persistent grid: a block for every row of the list, but no more
+    blocks than the card holds at once."""
+    return min(n_desc, resident * n_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_card(layout: int, device: int):
+    """(K4's resident blocks an SM on ``layout``, SMs) of CUDA device
+    ``device``."""
+    with torch.cuda.device(device):
+        occ = cuda_lib.occupancy("tsdf_stream")
+        return (occ["packed" if layout == cuda_lib.LAYOUT_PACKED else "float32"],
+                cuda_lib.device_limits()[0])
+
+
 def launch_stream_kernel(data, planes, desc, count, mips, params):
     """The CUDA K4 launch over a work list (in place), on either volume
     layout."""
@@ -431,14 +451,16 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
     cuda_lib.require_cuda("tsdf_stream", planes, params, *mips)
     if (tuple(planes.shape) != planes_shape(dims)
             or desc.dim() != 2 or desc.shape[1] != 8 or count.numel() != 1
-            or params.numel() < 26 or any(m.dim() != 2 for m in mips)):
+            or params.numel() < 26 or any(m.dim() != 2 or m.shape[1] % 128 for m in mips)):
         raise ValueError("tsdf_stream: bad volume, planes, work-list, params or mip shapes")
     nx, ny, nz = dims
     m0, m1, m2, l3 = mips
-    lib = cuda_lib.load()
-    rc = lib.hs_tsdf_stream(
+    grid = stream_grid(desc.shape[0], *_stream_card(layout, data.device.index))
+    if grid < 1 and desc.shape[0]:
+        raise ValueError("tsdf_stream: no block of the kernel fits on an SM")
+    rc = cuda_lib.load().hs_tsdf_stream(
         data.data_ptr(), layout, planes.data_ptr(), desc.data_ptr(), count.data_ptr(),
-        desc.shape[0], nx, ny, nz,
+        grid, nx, ny, nz,
         m0.data_ptr(), m0.shape[0], m0.shape[1],
         m1.data_ptr(), m1.shape[0], m1.shape[1],
         m2.data_ptr(), m2.shape[0], m2.shape[1],

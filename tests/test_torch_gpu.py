@@ -9,7 +9,8 @@ Inputs come from the port's own synthetic module (no JAX). The library
 builds with --fmad=false, so kernel and plain version run the same
 float32 operations; they differ only in summation order. Bounds: K1
 2e-5; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
-reference's bounds for its fused level); K4 weights identical, the tsdf
+reference's bounds for its fused level), and two runs of K3 on the same
+inputs bit-identical (no float atomics); K4 weights identical, the tsdf
 within one quantization step (packed) or 1e-6 (float32) on >= 99.9% of
 voxels, plane valid flags on >= 99.9% of sub-blocks, fields 1e-5 (both
 sum the moments in float64), field 11 identical; K6 valid masks on >=
@@ -34,7 +35,14 @@ from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, ren
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import build_worklist
-from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
+from housescan_tpu_torch.kinfu.icp import DAMPINGS
+from housescan_tpu_torch.ops.icp_cuda import (
+    BAND_H,
+    _plan,
+    icp_level,
+    icp_level_plain,
+    icp_level_state,
+)
 from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda
 from housescan_tpu_torch.ops.solve6 import solve_twist_compose, solve_twist_plain
 from housescan_tpu_torch.ops.raycast_tiles import (
@@ -66,11 +74,13 @@ from housescan_tpu_torch.ops.tsdf_stream import (
     launch_free_kernel,
     launch_stream_kernel,
     planes_shape,
+    stream_grid,
     tsdf_integrate_stream,
 )
 
 VGA = Intrinsics(640, 480, 525.0, 525.0, 319.5, 239.5)
 QQVGA = Intrinsics(160, 120, 131.25, 131.25, 79.5, 59.5)
+HD720 = Intrinsics(1280, 720, 1050.0, 1050.0, 639.5, 359.5)
 
 
 @pytest.fixture(autouse=True)
@@ -106,29 +116,112 @@ def test_bilateral_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_icp_kernel_matches_plain(cuda):
-    """A 640x480 frame pair (2 px of motion, window 4): frame 0 as the
-    model."""
-    poses, frames = _stream(VGA, 2, 0.008, cuda)
+@pytest.mark.parametrize("intr,yaw", [(VGA, 0.008), (HD720, 0.004)], ids=["vga", "hd720"])
+def test_icp_kernel_matches_plain(cuda, intr, yaw):
+    """A frame pair (2 px of motion, window 4): frame 0 as the model. At
+    640x480 every block holds its slice in shared memory; at 1280x720 a
+    slice is larger than that, and each block reads the rest of its pixels
+    from global memory every iteration."""
+    poses, frames = _stream(intr, 2, yaw, cuda)
     p0 = torch.from_numpy(poses[0]).to(cuda)
-    live0 = build_pyramid(frames[0], VGA).maps[0]
+    live0 = build_pyramid(frames[0], intr).maps[0]
     rot, t = p0[:3, :3], p0[3, :3]
     v_w = torch.einsum("chw,cd->dhw", live0[0:3], rot) + t[:, None, None]
     n_w = torch.einsum("chw,cd->dhw", live0[3:6], rot)
     valid = ((live0[3:6] ** 2).sum(0) > 0.25).to(torch.float32)
     model = torch.cat([frames[0][None], v_w, n_w, valid[None]]) * valid
-    live1 = build_pyramid(frames[1], VGA).maps[0]
+    live1 = build_pyramid(frames[1], intr).maps[0]
     packed = mp.pack_icp_inputs(live1, model, mp.model_gradients(model), band_h=BAND_H)
+    plan = _plan(packed.shape[1], packed.shape[2], packed.device.index)
+    assert (plan.shared_pixels < plan.pixels_per_block) == (intr is HD720)
     args = dict(n_iters=10, window=4, dist_threshold=0.10, tight_threshold=0.0117)
     before = cuda_lib.launch_counts["icp_level"]
-    kp, kr, kc = icp_level(packed, p0, p0, VGA, **args)
-    qp, qr, qc = icp_level_plain(packed, p0, p0, VGA, **args)
+    kp, kr, kc = icp_level(packed, p0, p0, intr, **args)
+    qp, qr, qc = icp_level_plain(packed, p0, p0, intr, **args)
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts["icp_level"] == before + 1
     assert int(qc) > 10000
     assert float((kp - qp).abs().max()) <= 5e-5
     assert abs(float(kr) - float(qr)) < 1e-4
     assert abs(int(kc) - int(qc)) <= max(5, int(qc) // 200)
+
+
+def _icp_level_input(cuda, level, yaw=0.008):
+    """Packed maps of one pyramid level of a 640x480 frame pair (frame 0's
+    maps in world space as the model, frame 1 live), frame 0's pose and
+    the level's intrinsics."""
+    poses, frames = _stream(VGA, 2, yaw, cuda)
+    p0 = torch.from_numpy(poses[0]).to(cuda)
+    live0 = build_pyramid(frames[0], VGA).maps[level]
+    rot, t = p0[:3, :3], p0[3, :3]
+    v_w = torch.einsum("chw,cd->dhw", live0[0:3], rot) + t[:, None, None]
+    n_w = torch.einsum("chw,cd->dhw", live0[3:6], rot)
+    valid = ((live0[3:6] ** 2).sum(0) > 0.25).to(torch.float32)
+    model = torch.cat([live0[2:3], v_w, n_w, valid[None]]) * valid
+    live1 = build_pyramid(frames[1], VGA).maps[level]
+    packed = mp.pack_icp_inputs(live1, model, mp.model_gradients(model), band_h=BAND_H)
+    return packed, p0, VGA.level(level)
+
+
+def _icp_matches_plain(packed, p0, cam, min_corr, start=None, **args):
+    start = p0 if start is None else start
+    kp, kr, kc = icp_level(packed, start, p0, cam, **args)
+    qp, qr, qc = icp_level_plain(packed, start, p0, cam, **args)
+    torch.cuda.synchronize()
+    assert int(qc) > min_corr
+    assert float((kp - qp).abs().max()) <= 5e-5
+    assert abs(float(kr) - float(qr)) < 1e-4
+    assert abs(int(kc) - int(qc)) <= max(5, int(qc) // 200)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_icp_kernel_matches_plain_at_each_level(cuda, level):
+    """The step's iterations, windows and dampings a level (one launch a
+    level), with the adaptive gate."""
+    packed, p0, cam = _icp_level_input(cuda, level)
+    args = dict(n_iters=(10, 5, 4)[level], window=(4, 2, 4)[level],
+                dist_threshold=(0.0117, 0.05, 0.10)[level], damping=DAMPINGS[level],
+                tight_threshold=0.0117)
+    before = cuda_lib.launch_counts["icp_level"]
+    _icp_matches_plain(packed, p0, cam, packed.shape[1] * packed.shape[2] // 40, **args)
+    assert cuda_lib.launch_counts["icp_level"] == before + 1
+
+
+@pytest.mark.gpu
+def test_icp_kernel_widens_like_plain(cuda):
+    """A start pose 3 cm off collapses the correspondences under the tight
+    gate: the kernel widens (widen_until > 0), recovers and matches."""
+    packed, p0, cam = _icp_level_input(cuda, 0)
+    start = p0.clone()
+    start[3, 2] += 0.03
+    args = dict(n_iters=10, window=4, dist_threshold=0.10, tight_threshold=0.0117)
+    state = icp_level_state(packed, start, p0, cam, **args)
+    assert float(state[21]) > 0
+    _icp_matches_plain(packed, p0, cam, 10000, start=start, **args)
+
+
+@pytest.mark.gpu
+def test_icp_kernel_converges_early_like_plain(cuda):
+    """Thirty iterations at level 2 on a small motion: every block leaves
+    the loop at the same iteration, before the last, and the result
+    matches the plain version's masked loop."""
+    packed, p0, cam = _icp_level_input(cuda, 2, yaw=0.004)
+    args = dict(n_iters=30, window=4, dist_threshold=0.10, damping=DAMPINGS[2],
+                tight_threshold=0.0117)
+    state = icp_level_state(packed, p0, p0, cam, **args)
+    assert float(state[19]) == 1.0 and float(state[18]) < 30
+    _icp_matches_plain(packed, p0, cam, 1000, **args)
+
+
+@pytest.mark.gpu
+def test_icp_kernel_repeats_bit_for_bit(cuda):
+    packed, p0, cam = _icp_level_input(cuda, 0)
+    args = dict(n_iters=10, window=4, dist_threshold=0.0117, tight_threshold=0.0117)
+    a = icp_level_state(packed, p0, p0, cam, **args)
+    b = icp_level_state(packed, p0, p0, cam, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 LAYOUTS = [torch.int32, torch.float32]
@@ -176,6 +269,55 @@ def test_stream_kernel_matches_plain(fused):
     assert float((kv == qv).float().mean()) >= 0.999
     both = (kv & qv)[:, :, :, None, :].expand_as(kp)
     assert float((kp - qp)[both].abs().max()) <= 1e-5
+    assert torch.equal(kp[:, :, :, FIELD_SAT], qp[:, :, :, FIELD_SAT])
+
+
+@pytest.fixture(params=LAYOUTS, ids=["packed", "float32"])
+def fused_vga(cuda, request):
+    """A 256^3 volume of each layout with one fused 640x480 frame, and the
+    next frame's work list, mips and parameters: a list longer than K4's
+    persistent grid."""
+    poses, frames = _stream(VGA, 2, 0.3, cuda)
+    vol = tsdf_new(256, 3.0, 0.03, dtype=request.param, device=cuda)
+    planes = torch.zeros(planes_shape(256), device=cuda)
+    tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda), VGA)
+    p1 = torch.from_numpy(poses[1]).to(cuda)
+    sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+    wl = build_worklist(frames[1], p1, VGA, 256, vol.voxel_size, vol.origin, vol.trunc,
+                        sat_quarters=sat)
+    return vol, planes, wl, build_depth_mips(frames[1]), _stream_params(vol, p1, VGA, 128.0, 32, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", ["none", "one", "all"])
+def test_stream_kernel_persistent_grid_matches_plain(fused_vga, count):
+    """K4 on lists of 0, 1 and more chunks than its grid has blocks."""
+    vol, planes, wl, mips, params = fused_vga
+    layout = "packed" if vol.data.dim() == 3 else "float32"
+    grid = stream_grid(wl.desc.shape[0], cuda_lib.occupancy("tsdf_stream")[layout],
+                       cuda_lib.device_limits()[0])
+    n = {"none": 0, "one": 1, "all": int(wl.count[0])}[count]
+    if count == "all":
+        assert n > grid
+    cnt = torch.tensor([n], dtype=torch.int32, device=vol.data.device)
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_stream_kernel(kd, kp, wl.desc, cnt, mips, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    integrate_plain(qd, qp, wl.desc, cnt, mips, params, 32, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(_weights(kd), _weights(qd))
+    if n == 0:
+        assert torch.equal(kd, vol.data) and torch.equal(kp, planes)
+        return
+    if count == "all":
+        assert int((_weights(qd) != _weights(vol.data)).sum()) > 100000
+    step = 1 if kd.dim() == 3 else 1e-6
+    assert float(((_tsdf_steps(kd) - _tsdf_steps(qd)).abs() <= step).float().mean()) >= 0.999
+    kv, qv = kp[:, :, :, 4] > 0.5, qp[:, :, :, 4] > 0.5
+    assert float((kv == qv).float().mean()) >= 0.999
+    both = (kv & qv)[:, :, :, None, :].expand_as(kp)
+    if bool(both.any()):
+        assert float((kp - qp)[both].abs().max()) <= 1e-5
     assert torch.equal(kp[:, :, :, FIELD_SAT], qp[:, :, :, FIELD_SAT])
 
 

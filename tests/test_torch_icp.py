@@ -23,7 +23,7 @@ from housescan_tpu.kinfu.synthetic import furnished_room, orbit_poses, render_de
 from housescan_tpu.ops.icp_pallas import icp_level_pallas, pack_level_maps
 from housescan_tpu.ops.solve6_pallas import _solve_twist_math as j_solve
 from housescan_tpu_torch.kinfu.camera import Intrinsics
-from housescan_tpu_torch.ops.icp_cuda import icp_level
+from housescan_tpu_torch.ops.icp_cuda import H100_SMEM_OPTIN, N_ROWS, icp_level, icp_plan
 from housescan_tpu_torch.ops.solve6 import solve_twist_math
 
 JINTR = JIntrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
@@ -125,3 +125,58 @@ def test_degenerate_system_keeps_pose(case):
 def test_rejects_unpadded_input():
     with pytest.raises(ValueError):
         icp_level(torch.zeros(19, 120, 160), torch.eye(4), torch.eye(4), INTR, n_iters=1)
+
+
+@pytest.mark.parametrize("shape", [(3, 4), (16,), (4, 4, 1)])
+def test_rejects_prev_pose_of_wrong_shape(shape):
+    """The kernel reads the previous pose as a row-major (4, 4): any other
+    shape is refused, on the CPU as on the card."""
+    with pytest.raises(ValueError):
+        icp_level(torch.zeros(19, 128, 256), torch.eye(4), torch.zeros(shape), INTR, n_iters=1)
+
+
+# The (hp, wp) of the packed maps at the three levels of 640x480 (rows to
+# 32, columns to 128), and the SM counts of the H100's SXM and PCIe parts.
+VGA_LEVELS = [(480, 640), (256, 384), (128, 256)]
+
+
+@pytest.mark.parametrize("n_sms", [132, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("hp,wp", VGA_LEVELS, ids=["level0", "level1", "level2"])
+def test_plan_slices_fit(hp, wp, n_sms):
+    """One contiguous slice a block, at most one block an SM, every pixel
+    in exactly one slice, and each slice's 19 rows in shared memory."""
+    plan = icp_plan(hp, wp, n_sms)
+    n = hp * wp
+    assert plan.blocks <= n_sms
+    assert plan.pixels_per_block % 32 == 0
+    assert (plan.blocks - 1) * plan.pixels_per_block < n <= plan.blocks * plan.pixels_per_block
+    assert plan.shared_pixels == plan.pixels_per_block
+    assert plan.pixels_per_block * N_ROWS * 4 < plan.smem_bytes <= H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("hp,wp,n_sms", [
+    (736, 1280, 132),  # 1280x720 (rows to 32) on an H100 SXM: 545 KB a slice
+    (960, 1280, 132),  # 1280x960: 708 KB a slice
+    (480, 640, 16),  # 640x480 on 16 SMs: 1.46 MB a slice
+], ids=["hd720", "sxga", "vga-16sms"])
+def test_plan_holds_what_fits_of_a_large_slice(hp, wp, n_sms):
+    """A slice larger than a block's shared memory keeps its first pixels
+    there, as many as fit (a multiple of 32), and the rest in global
+    memory; the grid is unchanged."""
+    plan = icp_plan(hp, wp, n_sms)
+    n = hp * wp
+    assert plan.blocks <= n_sms
+    assert (plan.blocks - 1) * plan.pixels_per_block < n <= plan.blocks * plan.pixels_per_block
+    assert plan.shared_pixels % 32 == 0
+    assert plan.shared_pixels < plan.pixels_per_block
+    assert plan.smem_bytes <= H100_SMEM_OPTIN < plan.smem_bytes + 32 * N_ROWS * 4
+
+
+@pytest.mark.parametrize("hp,wp,n_sms,max_smem", [
+    (960, 1280, 132, 4096),  # no room beside the kernel's own shared memory
+    (480, 640, 16, 4096 + 32 * N_ROWS * 4 - 1),  # one byte short of a warp's pixels
+    (480, 640, 132, 1024),
+])
+def test_plan_that_cannot_fit_raises(hp, wp, n_sms, max_smem):
+    with pytest.raises(ValueError):
+        icp_plan(hp, wp, n_sms, max_smem)

@@ -52,7 +52,12 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_worklist
 from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
-from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, planes_shape, tsdf_integrate_stream
+from housescan_tpu_torch.ops.tsdf_stream import (
+    FIELD_SAT,
+    planes_shape,
+    stream_grid,
+    tsdf_integrate_stream,
+)
 
 JINTR = JIntrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
 INTR = Intrinsics(*JINTR)
@@ -234,3 +239,21 @@ def test_planes_match_standalone_extraction(dtype):
         np.testing.assert_allclose(g[fields][:, m], w_[fields][:, m], atol=1e-5)
         n_valid += int(m.sum())
     assert n_valid > 30
+
+
+@pytest.mark.parametrize("n_desc,resident,n_sms,count", [
+    (16384, 1, 132, 1124),  # 512^3 chunks, the orbit's main list
+    (16384, 2, 114, 1124),
+    (16384, 1, 132, 0),
+    (16384, 1, 132, 1),
+    (256, 1, 132, 256),  # 128^3: fewer rows than the card holds blocks
+    (2048, 3, 132, 397),
+])
+def test_stream_grid_walks_every_listed_row_once(n_desc, resident, n_sms, count):
+    """K4's persistent grid: min(n_desc, resident x SMs) blocks, block b
+    taking rows b, b + grid, ... below the count (the kernel's stride
+    loop, walked here in Python): every listed row exactly once."""
+    grid = stream_grid(n_desc, resident, n_sms)
+    assert grid == min(n_desc, resident * n_sms)
+    rows = [c for b in range(grid) for c in range(b, count, grid)]
+    assert sorted(rows) == list(range(count))
