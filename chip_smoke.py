@@ -24,8 +24,12 @@ float32 volume. Phases, each fatal on failure:
      kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
      carve, K6 plane raycast) with its plain PyTorch version on the card
      at the shapes the main path gives it; K5 on a free list of at least
-     16 superblocks (the state after frame 20, else after frame 0); then
-     K3's three level calls of a step, each run twice (bit-identical
+     16 superblocks (the state after frame 20, else after frame 0), then
+     timed on that list with its count set to 0 (an empty list, which
+     must change nothing); K6 bit-identical on all 9 rows at 640x480 and,
+     on the same planes, at 160x120 (384 candidates a tile), with each
+     size's candidates a tile (mean, max, tiles with none, full tiles);
+     then K3's three level calls of a step, each run twice (bit-identical
      required), held against its plain version (phase 4's bounds) and
      timed (CUDA events, and its device kernels by the profiler), and K4
      over the main list's every row with the count set to 0 (an empty
@@ -42,8 +46,8 @@ float32 volume. Phases, each fatal on failure:
      against their plain versions on the float layout, split against
      unsplit bit-identical, K7 as the oracle of K4's persistent planes
      (a fresh extraction after a step equals them on every listed chunk:
-     valid flags identical, fields but 11 within 1e-5 where valid), K4 on
-     the empty list, then the timed pass with phase 6's gates;
+     valid flags identical, fields but 11 within 1e-5 where valid), K4 and
+     K5 on the empty list, then the timed pass with phase 6's gates;
   8. the scan at full width: record the 21 frames, load them, and run
      ``scan_to_room_dir(config=Config(), write_mesh=True)`` (the kernel
      path, fusing into float32) into ``build/chip_smoke/scan_room``; the
@@ -81,23 +85,23 @@ float32 volume. Phases, each fatal on failure:
  12. time each kernel and its plain version with CUDA events, beside its
      bound: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) for this run's
      inputs (H100 SXM data sheet; each input byte read once, each output
-     byte written once); K4 and K5 on both layouts; each kernel's
-     resident blocks an SM (the occupancy calculator);
+     byte written once); K4 and K5 on both layouts, K6 at 160x120 too;
+     each kernel's resident blocks an SM (the occupancy calculator);
  13. profile three fusion steps of the kernel path (both layouts) and the
      XLA path: device kernel time per step against the timed pass's frame
-     time (the device's busy share) and beside the readings before K3's
-     and K4's redesign, the launches per step, each stage's device and
+     time (the device's busy share) and beside the readings before K5's
+     and K6's redesign, the launches per step, each stage's device and
      host time a step, the top kernels, and the full tables in
      ``build/chip_smoke/profile.txt``, ``profile_f32.txt`` and
      ``profile_xla.txt``.
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
-comparisons and empty list, and phase 12's times of the main path's
-kernels (K1, K3-K6) alone, and prints no result line. It calls nothing
-that the package of an earlier commit lacks (no occupancy query), so
-copied into a checkout of that commit it reads the same calls there: the
-before and after of a kernel's redesign, in turns within one run on the
-card.
+comparisons and empty lists, phase 12's times and resident blocks of the
+main path's kernels (K1, K3-K6) and phase 13's profile of the kernel
+path on both layouts, and prints no result line. It calls nothing that
+the package of the commit before K5's and K6's redesign lacks, so copied
+into a checkout of that commit it reads the same calls there: the before
+and after of a redesign, in turns within one run on the card.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
@@ -139,6 +143,8 @@ QUEUE_CYCLES = 50_000_000  # ~25 ms of device clock: cuda_ms's head start for th
 CHUNK_VOXELS = 8 * 8 * 128
 TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
 LAYOUTS = {torch.int32: "packed", torch.float32: "float32"}
+SMALL_CAM = (160, 120, 131.25, 131.25, 79.5, 59.5)  # the reference tests' 160x120 camera
+SMALL_K6 = "raycast_tiles@160x120"  # K6 at SMALL_CAM: 30 tiles, 384 candidates a tile
 
 
 def chunk_bytes(data) -> int:
@@ -232,18 +238,17 @@ def free_inputs(vol, planes, depth, pose, intr):
     return wl, fwl, params, n_sb, len(members)
 
 
-def compare_kernels(st, st0, intr, depth, depth1, pose1):
+def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
     """Each kernel against its plain version at the main path's shapes,
     from the state after the warm orbit (K5: that state, else the state
     after frame 0 with frame 1). Returns per-kernel max abs error, the
     callables the timing phase reuses and each kernel's bound inputs."""
     from housescan_tpu_torch.kinfu import maps as mp
+    from housescan_tpu_torch.kinfu.camera import Intrinsics
     from housescan_tpu_torch.kinfu.preprocess import build_pyramid
     from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
     from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda, bilateral_filter_plain
-    from housescan_tpu_torch.ops.raycast_tiles import (
-        _ray_params, build_tile_candidates, launch_raycast_kernel, raycast_tiles_plain,
-    )
+
     errs, calls, bounds = {}, {}, {}
     h, w = intr.height, intr.width
 
@@ -281,29 +286,54 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1):
     errs["tsdf_stream"], calls["tsdf_stream"], bounds["tsdf_stream"], n_listed = \
         compare_stream(st, depth, intr)
     errs["tsdf_free"], calls["tsdf_free"], bounds["tsdf_free"], n_sb, n_members = \
-        compare_free(st, st0, depth, depth1, pose1, intr)
+        compare_free(st, st0, depth, depth1, pose1, intr, card)
 
-    # K6 on the state's planes at its pose: the candidates read once and
-    # the 9 output rows written once; ~17 float ops per pixel and usable
-    # candidate of its tile
-    cand = build_tile_candidates(st.planes, st.pose, intr, st.volume)
-    n_ut = -(-intr.width // 128)
-    rparams = _ray_params(st.pose, intr, 0.3, n_ut)
-    kr6 = launch_raycast_kernel(cand, rparams, intr.height, n_ut * 128)
-    qr6 = raycast_tiles_plain(cand, rparams, intr.height, n_ut * 128)
-    kval, qval = kr6[0] > 0, qr6[0] > 0
-    agree = float((kval == qval).float().mean())
-    bothv = kval & qval
-    errs["raycast_tiles"] = float((kr6[:7] - qr6[:7])[:, bothv].abs().max())
-    if agree < 0.995 or errs["raycast_tiles"] > 1e-5 or int(bothv.sum()) < 10000:
-        fail(f"K6 differs: valid agreement {agree}, max diff {errs['raycast_tiles']}")
-    calls["raycast_tiles"] = (
-        lambda: launch_raycast_kernel(cand, rparams, intr.height, n_ut * 128),
-        lambda: raycast_tiles_plain(cand, rparams, intr.height, n_ut * 128),
-    )
-    n_cand = int((cand[:, :, 9] > 0.5).sum())
-    bounds["raycast_tiles"] = bound(cand.numel() * 4 + kr6.numel() * 4, 17 * 1024 * n_cand)
+    # K6 at the main path's 640x480 (96 candidates a tile) and, on the same
+    # planes, at 160x120 (fewer than 128 tiles: 384 a tile)
+    for cam, key in ((intr, "raycast_tiles"), (Intrinsics(*SMALL_CAM), SMALL_K6)):
+        errs[key], calls[key], bounds[key] = compare_raycast(st, cam, card)
     return errs, calls, bounds, dict(n_listed=n_listed, n_sb=n_sb, n_members=n_members)
+
+
+def compare_raycast(st, cam, card):
+    """K6 against its plain version on the state's planes at its pose, at
+    camera ``cam``: every one of the 9 rows bit-identical (the kernel runs
+    the plain version's float32 operations; the nearest hit, ties to the
+    larger block id, and the nearest occluder do not depend on the order
+    of a tile's candidates, whose block ids are unique). Prints the
+    per-tile candidate counts. Returns (0.0, timing calls, bound). Bound:
+    the candidates read once and the 9 output rows written once; ~17
+    float ops per pixel and usable candidate of its tile."""
+    from housescan_tpu_torch.ops.raycast_tiles import (
+        _ray_params, build_tile_candidates, launch_raycast_kernel, raycast_tiles_plain,
+    )
+
+    cand = build_tile_candidates(st.planes, st.pose, cam, st.volume)
+    n_ut = -(-cam.width // 128)
+    w_pad = n_ut * 128
+    rparams = _ray_params(st.pose, cam, 0.3, n_ut)
+    k = launch_raycast_kernel(cand, rparams, cam.height, w_pad)
+    q = raycast_tiles_plain(cand, rparams, cam.height, w_pad)
+    torch.cuda.synchronize()
+    counts = (cand[:, :, 9] > 0.5).sum(dim=1)
+    n_tiles, max_ct = cand.shape[0], cand.shape[1]
+    kval, qval = k[0] > 0, q[0] > 0
+    n_valid = int(qval.sum())
+    where = f"{cam.width}x{cam.height}, {n_tiles} tiles of {max_ct} slots"
+    print(f"# K6 candidates a tile ({where}): mean {float(counts.float().mean()):.2f}, max "
+          f"{int(counts.max())}, {int((counts == 0).sum())} tiles with none, "
+          f"{int((counts == max_ct).sum())} full, {int(counts.sum())} in all; {n_valid} pixels hit "
+          f"[{card}]", flush=True)
+    if not torch.equal(k, q):
+        diff = float((k - q).abs().nan_to_num(float("inf")).max())
+        fail(f"K6 ({where}) differs from its plain version: validity differs on "
+             f"{int((kval != qval).sum())} pixels, max diff {diff}")
+    if n_valid < cam.width * cam.height // 30:
+        fail(f"K6 ({where}) comparison hit only {n_valid} pixels")
+    print(f"# K6 compare ({where}): all 9 rows bit-identical", flush=True)
+    calls = (lambda: launch_raycast_kernel(cand, rparams, cam.height, w_pad),
+             lambda: raycast_tiles_plain(cand, rparams, cam.height, w_pad))
+    return 0.0, calls, bound(cand.numel() * 4 + k.numel() * 4, 17 * 1024 * int(counts.sum()))
 
 
 ICP_ITERS = (10, 5, 4)  # the step's iterations a level, finest first
@@ -493,12 +523,16 @@ def compare_stream(st, depth, intr):
                              60 * CHUNK_VOXELS * n_listed), n_listed
 
 
-def compare_free(st, st0, depth, depth1, pose1, intr):
+def compare_free(st, st0, depth, depth1, pose1, intr, card):
     """K5 against its plain version on copies, on a free list of >= 16
     superblocks (the state after frame 20, else after frame 0 with frame
-    1): bit-identical. Returns (0.0, timing calls, bound, listed
-    superblocks, member chunks). Bound: each member chunk read and written
-    once plus its planes tile; ~30 float ops a voxel."""
+    1): bit-identical; then the same list with its count set to 0 (the
+    cost of a launch over an empty list), which must leave the volume and
+    planes untouched. Returns (0.0, timing calls, bound, listed
+    superblocks, member chunks). Bound: each member
+    chunk read once, the volume words the carve changes written once (a
+    word that keeps its value need not be stored) and each member's planes
+    tile written; ~30 float ops a voxel."""
     from housescan_tpu_torch.ops.tsdf_stream import free_carve_plain, launch_free_kernel
 
     vol, planes, pose = st.volume, st.planes, st.pose
@@ -517,19 +551,34 @@ def compare_free(st, st0, depth, depth1, pose1, intr):
     free_carve_plain(qd, qpl, fwl, params)
     torch.cuda.synchronize()
     changed = int((_tw(kd)[1] != _tw(vol.data)[1]).sum())
+    # 4-byte words of the volume the carve changes (packed cells, or float32
+    # tsdf and weight words), compared as bits
+    words = int((kd.view(torch.int32) != vol.data.view(torch.int32)).sum())
     if not torch.equal(kd, qd) or not torch.equal(kpl, qpl):
         fail(f"K5 ({tag}) free carve differs from its plain version")
     print(f"# K5 compare ({tag}, {src}): {n_sb} listed superblocks, {n_members} member chunks, "
-          f"{changed} voxel weights changed, bit-identical", flush=True)
+          f"{changed} voxel weights changed, {words} volume words changed, bit-identical",
+          flush=True)
     if n_sb < 16:
         print(f"# K5 compare: only {n_sb} superblocks listed (fewer than 16)", flush=True)
     del kd, qd, kpl, qpl
     scratch = vol.data.clone(), planes.clone()
+    empty = fwl._replace(count=torch.zeros_like(fwl.count))
+    launch_free_kernel(scratch[0], scratch[1], empty, params)
+    torch.cuda.synchronize()
+    if not torch.equal(scratch[0], vol.data) or not torch.equal(scratch[1], planes):
+        fail(f"K5 ({tag}) over an empty list changed the volume or the planes")
+    ms0 = cuda_ms(lambda: launch_free_kernel(scratch[0], scratch[1], empty, params),
+                  REPS["tsdf_free"][0])
+    print(f"# K5 ({tag}) over {fwl.bitmap.shape[0]} entries: count 0 {ms0:.4f} ms (CUDA events), "
+          f"volume and planes untouched [{card}]", flush=True)
     calls = (
         lambda: launch_free_kernel(scratch[0], scratch[1], fwl, params),
         lambda: free_carve_plain(scratch[0], scratch[1], fwl, params),
     )
-    return 0.0, calls, bound(n_members * (2 * chunk_bytes(vol.data) + TILE_BYTES),
+    # the words that do not change need not be written: the least bytes are
+    # every member chunk read, the changed words and the planes tiles written
+    return 0.0, calls, bound(n_members * (chunk_bytes(vol.data) + TILE_BYTES) + 4 * words,
                              30 * CHUNK_VOXELS * n_members), n_sb, n_members
 
 
@@ -740,6 +789,41 @@ def profile_steps(intr, poses, frames, res, device, out_path, n=3, dtype=torch.i
     k2_us = getattr(k2[0], attr) / k2[0].count if k2 else None
     return dev_ms, launches, [(e.key, getattr(e, attr) / 1000.0 / n, e.count / n) for e in top], \
         stages, k2_us
+
+
+# Phase 13's profiles: (cell, profile_steps keywords, table file, the
+# device ms and launches a step before K5's and K6's redesign, NVIDIA H100
+# 80GB HBM3, 700.00 W).
+PROFILES = (
+    (f"box-{RES}", dict(res=RES), "profile.txt", (4.718, 2494)),
+    (f"box-{RES}-f32", dict(res=RES, dtype=torch.float32), "profile_f32.txt", (4.795, 2494)),
+    (f"xla-{XLA_RES}", dict(res=XLA_RES, dtype=torch.float32, use_pallas=False),
+     "profile_xla.txt", (85.239, 16896)),
+)
+
+
+def report_profile(tag, intr, poses, frames, device, card, secs, kw, name, before):
+    """Print profile_steps' reading of cell ``tag``: device time and
+    launches a step beside ``before``, the device's busy share against the
+    timed pass's ``secs`` (where given), each stage and the top kernels."""
+    dev_ms, n_launch, top, stages, k2_us = profile_steps(intr, poses, frames, device=device,
+                                                         out_path=os.path.join(OUT, name), **kw)
+    busy = ""
+    if secs is not None:
+        frame_ms = secs / N_FRAMES * 1000.0
+        busy = f"; timed pass {frame_ms:.3f} ms/frame -> device busy {dev_ms / frame_ms * 100:.1f}%"
+    print(f"# profile {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
+          f"launches/step (before the redesign: {before[0]} ms in {before[1]}){busy} [{card}]",
+          flush=True)
+    for stage, (d_ms, h_ms) in stages.items():
+        print(f"# profile {tag}: stage {stage}: device {d_ms:.3f} ms/step, host {h_ms:.3f} "
+              f"ms/step", flush=True)
+    if k2_us is not None:
+        print(f"# profile {tag}: K2 solve6_kernel device time {k2_us:.2f} us a launch "
+              f"[{card}]", flush=True)
+    for key, ms, n in top:
+        print(f"# profile {tag}: {ms:8.4f} ms/step {n:6.1f}x/step {key[:90]}", flush=True)
+    torch.cuda.empty_cache()
 
 
 def host_syncs(fn):
@@ -1048,7 +1132,7 @@ def run_dense(intr, poses, frames, device, card):
     # zeros) move the bilinear depth by a few ulps (~1e-6 m at 2 m, 3e-5
     # of the truncation): gated at 1e-4.
     half, boxes = furnished_room()
-    small = Intrinsics(160, 120, 131.25, 131.25, 79.5, 59.5)
+    small = Intrinsics(*SMALL_CAM)
     twin_poses = orbit_poses(2, radius=0.25, yaw_range=0.05, pitch=0.25)
     twin_depth = render_depth_stream(small, twin_poses, half, boxes, device=device)[0]
     for what, res, trunc, cam, depth0, pose0, limit in (
@@ -1078,7 +1162,7 @@ def run_dense(intr, poses, frames, device, card):
 
 # CUDA-event calls a timing (kernel, plain version)
 REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
-        "tsdf_free": (20, 1), "raycast_tiles": (50, 2), "solve6": (200, 3),
+        "tsdf_free": (20, 1), "raycast_tiles": (50, 2), SMALL_K6: (50, 2), "solve6": (200, 3),
         "planes_extract": (20, 1), "tsdf_dense": (10, 1)}
 
 
@@ -1099,7 +1183,8 @@ def box_kernels(intr, poses, frames, device, card):
     (errors, timing calls, bounds, list sizes, warm pass seconds)."""
     pose1 = torch.from_numpy(poses[1]).to(device)
     st, st0, warm_s = warm_states(intr, poses, frames, device, torch.int32)
-    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1)
+    errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1,
+                                                 card)
     print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
     icp_levels(st, frames[N_FRAMES], intr, card)
     stream_empty_list(st, frames[N_FRAMES], intr, card)
@@ -1113,7 +1198,8 @@ def f32_kernels(intr, poses, frames, device, card):
     pose1 = torch.from_numpy(poses[1]).to(device)
     st, st0, warm_f = warm_states(intr, poses, frames, device, torch.float32)
     f32 = {"tsdf_stream": compare_stream(st, frames[N_FRAMES], intr),
-           "tsdf_free": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr)}
+           "tsdf_free": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr,
+                                         card)}
     stream_empty_list(st, frames[N_FRAMES], intr, card)
     return f32, st, warm_f
 
@@ -1128,7 +1214,7 @@ def time_kernels(names, calls, bounds, card, launches=None):
         ms, plain_ms = cuda_ms(k_fn, REPS[name][0]), cuda_ms(q_fn, REPS[name][1])
         out[name] = (ms, plain_ms)
         bound_ms, bound_by = bounds[name]
-        where = "" if launches is None else \
+        where = "" if name not in (launches or {}) else \
             f", {launches[name]} launches on its path's run of {N_FRAMES + 1} frames"
         print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.3e} ms "
               f"({bound_by}){where} [{card}]", flush=True)
@@ -1146,14 +1232,18 @@ def time_f32(f32, card):
 
 
 def probe(intr, poses, frames, device, card):
-    """``--probe``: phase 4, phase 7's kernels and phase 12's times of
-    the main path's kernels, on both layouts."""
+    """``--probe``: phase 4, phase 7's kernels, phase 12's times of the
+    main path's kernels on both layouts and their resident blocks an SM,
+    and phase 13's device time a step on both layouts."""
     errs, calls, bounds, _, _ = box_kernels(intr, poses, frames, device, card)
     f32, st, _ = f32_kernels(intr, poses, frames, device, card)
     del st
     torch.cuda.empty_cache()
     time_kernels(list(calls), calls, bounds, card)
     time_f32(f32, card)
+    occupancy_report(intr, card)
+    for tag, kw, name, before in PROFILES[:2]:
+        report_profile(tag, intr, poses, frames, device, card, None, kw, name, before)
 
 
 def main() -> None:
@@ -1237,7 +1327,7 @@ def main() -> None:
     path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"],
                          planes_extract=dense["launches"]["planes_extract"],
                          tsdf_dense=dense["launches"]["tsdf_dense"])
-    times = time_kernels(list(KERNELS), calls, bounds, card, path_launches)
+    times = time_kernels(list(KERNELS) + [SMALL_K6], calls, bounds, card, path_launches)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         bound_ms, bound_by = bounds[name]
@@ -1252,30 +1342,9 @@ def main() -> None:
     del dense
     torch.cuda.empty_cache()
 
-    # 13. where the device time goes, on each path, beside the readings
-    # before K3's and K4's redesign (NVIDIA H100 80GB HBM3, 700.00 W)
-    for tag, res, secs_, kw, name, before in (
-            (f"box-{RES}", RES, secs, {}, "profile.txt", (5.242, 2553)),
-            (f"box-{RES}-f32", RES, secs_f, dict(dtype=torch.float32), "profile_f32.txt",
-             (5.304, 2553)),
-            (f"xla-{XLA_RES}", XLA_RES, xla["secs"], dict(dtype=torch.float32, use_pallas=False),
-             "profile_xla.txt", (85.983, 16897))):
-        dev_ms, n_launch, top, stages, k2_us = profile_steps(intr, poses, frames, res, device,
-                                                             os.path.join(OUT, name), **kw)
-        frame_ms = secs_ / N_FRAMES * 1000.0
-        print(f"# profile {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
-              f"launches/step (before the redesign: {before[0]} ms in {before[1]}); timed pass "
-              f"{frame_ms:.3f} ms/frame -> device busy {dev_ms / frame_ms * 100:.1f}% [{card}]",
-              flush=True)
-        for stage, (d_ms, h_ms) in stages.items():
-            print(f"# profile {tag}: stage {stage}: device {d_ms:.3f} ms/step, host {h_ms:.3f} "
-                  f"ms/step", flush=True)
-        if k2_us is not None:
-            print(f"# profile {tag}: K2 solve6_kernel device time {k2_us:.2f} us a launch "
-                  f"[{card}]", flush=True)
-        for key, ms, n in top:
-            print(f"# profile {tag}: {ms:8.4f} ms/step {n:6.1f}x/step {key[:90]}", flush=True)
-        torch.cuda.empty_cache()
+    # 13. where the device time goes, on each path
+    for (tag, kw, name, before), secs_ in zip(PROFILES, (secs, secs_f, xla["secs"])):
+        report_profile(tag, intr, poses, frames, device, card, secs_, kw, name, before)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

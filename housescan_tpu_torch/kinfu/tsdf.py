@@ -127,13 +127,13 @@ def tsdf_new(
     size_m: float = 3.0,
     trunc: float = 0.03,
     origin: Optional[torch.Tensor] = None,
-    dtype=torch.int32,
+    dtype=torch.float32,
     device="cuda",
 ) -> TsdfVolume:
     """Fresh volume (tsdf = +1 far free space, weight 0) on ``device``:
-    packed for ``dtype=torch.int32`` (this function's default), float for
-    ``torch.float32`` (``kinfu_init``'s default, as the reference's). The
-    default origin centers the cube on the world origin."""
+    the float32 (2, X, Y, Z) layout by default, as the reference's, or the
+    packed one for ``dtype=torch.int32``. The default origin centers the
+    cube on the world origin."""
     if dtype not in (torch.int32, torch.float32):
         raise NotImplementedError(f"tsdf_new: {dtype} volumes are not ported (int32 or float32)")
     if origin is None:

@@ -75,7 +75,7 @@ _SIGNATURES = {
         _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
         _P, _F, _P,
     ],
-    # vol, layout, planes, bitmap, count, bi, bj, bk, n_sb, nx, ny, nz,
+    # vol, layout, planes, bitmap, count, bi, bj, bk, grid, nx, ny, nz,
     # params, sat_w, stream
     "hs_tsdf_free": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
     # vol, layout, planes, nx, ny, nz, params, stream

@@ -17,11 +17,17 @@ promises no tie order), and each tile's candidates come from a stable
 sort of the (tile, distance) composite keys, truncated to the per-tile
 budget ``_max_ct`` (96, or 384 on images with fewer than 128 tiles).
 
-CUDA kernel ``csrc/raycast_tiles.cu``: one block of 1024 threads per
-(8 x 128) tile, one thread per pixel; the tile's candidates (max_ct x 16
-floats, 6 KB at 96) are staged in shared memory and every thread loops
-over them. Bound: ~30 float ops per candidate per pixel, ~0.9 GFLOP a
-640x480 frame at 96 candidates, a few tens of microseconds on the card.
+CUDA kernel ``csrc/raycast_tiles.cu``: four blocks of 128 threads per
+(8 x 128) tile, each thread two pixels of one column; a block stages its
+tile's candidates in shared memory as 16-byte vectors (fields 0-11 and
+the candidate's pixel box, 6 KB at 96) and counts the usable ones while
+staging (the rows within a tile's count have ok = 1, the rows past it
+are zero), so every thread loops over that count, not over ``max_ct``.
+A pixel outside a candidate's box (the image of its support sphere,
+widened by a pixel) cannot hit it and skips it; a plane candidate's
+division runs only where the ray can hit it (den < 0). Bound: ~40
+instructions per usable candidate and pixel tested, which on the card
+is instruction issue rather than bytes.
 """
 
 from __future__ import annotations

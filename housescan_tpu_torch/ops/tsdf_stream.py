@@ -56,12 +56,16 @@ back, and one warp per sub-block fits the planes from the staged cells.
 Bound: device-memory traffic of 64 KB (packed) or 128 KB (float32) per
 listed chunk, plus the plane fit's ~10 float ops per voxel.
 
-CUDA kernel of K5, ``csrc/tsdf_free.cu``: one block of 512 threads per
-(listed superblock, member slot); a block past the device-side count or
-on a clear member bit returns at once. Bound: the member chunks' bytes,
-read and written once per member (32 KB each way packed, 64 KB float32),
-plus its 1 KB planes tile;
-non-member chunks are never touched (the TPU kernel copies them through).
+CUDA kernel of K5, ``csrc/tsdf_free.cu``: a persistent grid of
+``stream_grid(16 * n_sb, resident, n_sms)`` blocks of 4 warps walks the
+(free-list entry, member slot) items below 16 x the device-side count,
+skipping a clear member bit; warp q of a block carves z-quarter q of its
+item's chunk with 16-byte vector loads, a pass of 8 before its first
+store, stores back only the vectors whose cells changed, and writes its
+quarter's share of the planes tile. Bound: the member chunks' bytes,
+read once per member (32 KB packed, 64 KB float32), the changed words
+written once, plus its 1 KB planes tile; non-member chunks are never
+touched (the TPU kernel copies them through).
 """
 
 from __future__ import annotations
@@ -426,18 +430,19 @@ def tsdf_integrate_stream(
     return vol, planes
 
 
-def stream_grid(n_desc: int, resident: int, n_sms: int) -> int:
-    """K4's persistent grid: a block for every row of the list, but no more
-    blocks than the card holds at once."""
-    return min(n_desc, resident * n_sms)
+def stream_grid(n_items: int, resident: int, n_sms: int) -> int:
+    """K4's and K5's persistent grid: a block for every item (K4: a row of
+    the list; K5: a member slot of a free-list entry), but no more blocks
+    than the card holds at once."""
+    return min(n_items, resident * n_sms)
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_card(layout: int, device: int):
-    """(K4's resident blocks an SM on ``layout``, SMs) of CUDA device
-    ``device``."""
+def _card(kernel: str, layout: int, device: int):
+    """(resident blocks an SM of ``kernel`` (K4 or K5) on ``layout``, SMs)
+    of CUDA device ``device``."""
     with torch.cuda.device(device):
-        occ = cuda_lib.occupancy("tsdf_stream")
+        occ = cuda_lib.occupancy(kernel)
         return (occ["packed" if layout == cuda_lib.LAYOUT_PACKED else "float32"],
                 cuda_lib.device_limits()[0])
 
@@ -455,7 +460,7 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
         raise ValueError("tsdf_stream: bad volume, planes, work-list, params or mip shapes")
     nx, ny, nz = dims
     m0, m1, m2, l3 = mips
-    grid = stream_grid(desc.shape[0], *_stream_card(layout, data.device.index))
+    grid = stream_grid(desc.shape[0], *_card("tsdf_stream", layout, data.device.index))
     if grid < 1 and desc.shape[0]:
         raise ValueError("tsdf_stream: no block of the kernel fits on an SM")
     rc = cuda_lib.load().hs_tsdf_stream(
@@ -486,9 +491,12 @@ def launch_free_kernel(data, planes, fwl: FreeWorkList, params):
             or dims[0] % 32 or dims[1] % 32):
         raise ValueError("tsdf_free: bad volume, planes, free work-list or params shapes")
     nx, ny, nz = dims
+    grid = stream_grid(16 * n_sb, *_card("tsdf_free", layout, data.device.index))
+    if grid < 1 and n_sb:
+        raise ValueError("tsdf_free: no block of the kernel fits on an SM")
     rc = cuda_lib.load().hs_tsdf_free(
         data.data_ptr(), layout, planes.data_ptr(), fwl.bitmap.data_ptr(), fwl.count.data_ptr(),
-        fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), n_sb, nx, ny, nz,
+        fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), grid, nx, ny, nz,
         params.data_ptr(), SAT_W, cuda_lib.stream_ptr(),
     )
     cuda_lib.check(rc, "hs_tsdf_free")

@@ -46,6 +46,7 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import (
+    FreeWorkList,
     build_worklist,
     decode_free_worklist,
     decode_worklist,
@@ -55,6 +56,7 @@ from housescan_tpu_torch.ops.tsdf_stream import (
     N_QUARTERS,
     launch_free_kernel,
     planes_shape,
+    stream_grid,
     tsdf_integrate_stream,
 )
 
@@ -258,3 +260,37 @@ def test_free_kernel_wrapper_refuses_cpu_tensors(carried):
     with pytest.raises(ValueError):
         launch_free_kernel(vol, torch.zeros(planes_shape(RES)), carried["t_fwl"],
                            torch.zeros(32))
+
+
+@pytest.mark.parametrize("n_sb,count,resident,n_sms", [
+    (1024, 300, 4, 132),  # 512^3: the orbit's frame-20 list
+    (1024, 300, 3, 114),
+    (1024, 0, 4, 132),  # an empty list
+    (16, 3, 4, 132),  # 128^3: fewer items than the card holds blocks
+    (64, 64, 1, 2),  # every entry listed, many items a block
+])
+def test_free_grid_walks_every_member_once(n_sb, count, resident, n_sms):
+    """K5's persistent grid: stream_grid(16 n_sb, resident, SMs) blocks,
+    block b taking items b, b + grid, ... below 16 x the count, item i the
+    member slot i % 16 of entry i // 16, a clear member bit skipped (the
+    kernel's loop, walked here in Python): every member chunk of the
+    listed entries exactly once, and nothing else."""
+    rng = np.random.default_rng(n_sb + count)
+    side = 16
+    cells = rng.permutation(side * side * 4)[:n_sb]  # distinct superblocks
+    bitmap = rng.integers(0, 1 << 16, n_sb).astype(np.int32)
+    bitmap[::7] = 0  # entries without a member
+    fwl = FreeWorkList(
+        bitmap=torch.from_numpy(bitmap), count=torch.tensor([count], dtype=torch.int32),
+        bi=torch.from_numpy((cells // (side * 4)).astype(np.int32)),
+        bj=torch.from_numpy((cells // 4 % side).astype(np.int32)),
+        bk=torch.from_numpy((cells % 4).astype(np.int32)))
+    grid = stream_grid(16 * n_sb, resident, n_sms)
+    assert grid == min(16 * n_sb, resident * n_sms)
+    bi, bj, bk = (a.tolist() for a in (fwl.bi, fwl.bj, fwl.bk))
+    walked = [(bi[i // 16] * 4 + i % 16 // 4, bj[i // 16] * 4 + i % 4, bk[i // 16])
+              for b in range(grid) for i in range(b, 16 * count, grid)
+              if (int(bitmap[i // 16]) >> (i % 16)) & 1]
+    members = decode_free_worklist(fwl)[1]
+    assert len(walked) == len(set(walked)) == len(members)
+    assert sorted(walked) == sorted(members)

@@ -14,9 +14,12 @@ inputs bit-identical (no float atomics); K4 weights identical, the tsdf
 within one quantization step (packed) or 1e-6 (float32) on >= 99.9% of
 voxels, plane valid flags on >= 99.9% of sub-blocks, fields 1e-5 (both
 sum the moments in float64), field 11 identical; K6 valid masks on >=
-99.5% of pixels, rows 1e-5 where both hit; K5 bit-identical (the carve
-has no reduction whose order could differ), and so the split and
-unsplit integrates too, on both layouts; K2 within 2e-5 (the reference's
+99.5% of pixels, rows 1e-5 where both hit, and bit-identical on all 9
+rows with a tile emptied and one filled to every slot (the nearest hit
+and occluder do not depend on the candidates' order); K5 bit-identical
+(the carve has no reduction whose order could differ), also on an empty
+and a thinned list, and so the split and unsplit integrates too, on
+both layouts; K2 within 2e-5 (the reference's
 bound; the same scalar operations, so 0 is expected), and on degenerate
 systems the pose exactly unchanged; K7 and K8 bit-identical, K8's chunk
 classes too (the fit sums in float64 and rounds once; K8's bilinear
@@ -375,9 +378,9 @@ def _carved_scene(cuda, n, dtype=torch.int32):
     return vol, torch.zeros(planes_shape(128), device=cuda), poses, frames
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
-def test_free_kernel_matches_plain(cuda, dtype):
+def _carved_free_list(cuda, dtype):
+    """The carved scene after frame 0 (unsplit), frame 1's free work list
+    and parameters."""
     vol, planes, poses, frames = _carved_scene(cuda, 2, dtype)
     vol, planes = tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda),
                                         QQVGA, free_split=False)
@@ -386,8 +389,14 @@ def test_free_kernel_matches_plain(cuda, dtype):
     neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
     _, fwl = build_worklist(frames[1], p1, QQVGA, 128, vol.voxel_size, vol.origin, vol.trunc,
                             sat_quarters=sat, neg_flags=neg, free_split=True)
+    return vol, planes, fwl, _stream_params(vol, p1, QQVGA, 128.0, 16, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_free_kernel_matches_plain(cuda, dtype):
+    vol, planes, fwl, params = _carved_free_list(cuda, dtype)
     assert len(decode_free_worklist(fwl)[1]) > 16
-    params = _stream_params(vol, p1, QQVGA, 128.0, 16, 1)
     before = cuda_lib.launch_counts["tsdf_free"]
     kd, kp = vol.data.clone(), planes.clone()
     launch_free_kernel(kd, kp, fwl, params)
@@ -398,6 +407,159 @@ def test_free_kernel_matches_plain(cuda, dtype):
     assert int((kd != vol.data).sum()) > 10000
     assert torch.equal(kd, qd)
     assert torch.equal(kp, qp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_free_kernel_on_an_empty_list_changes_nothing(cuda, dtype):
+    """K5's persistent grid over a list whose count is 0: one launch, the
+    volume and planes untouched."""
+    vol, planes, fwl, params = _carved_free_list(cuda, dtype)
+    empty = fwl._replace(count=torch.zeros_like(fwl.count))
+    before = cuda_lib.launch_counts["tsdf_free"]
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kp, empty, params)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tsdf_free"] == before + 1
+    assert torch.equal(kd, vol.data)
+    assert torch.equal(kp, planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_free_kernel_on_a_thinned_list_matches_plain(cuda, dtype):
+    """K5 on the list with its last listed entry dropped from the count and
+    every other member bit of the rest cleared (a count below the list's
+    capacity, clear member bits inside it): bit-identical to the plain
+    version, which carves only the members left."""
+    vol, planes, fwl, params = _carved_free_list(cuda, dtype)
+    n = int(fwl.count[0])
+    assert 0 < n < fwl.bitmap.shape[0]
+    count = max(n - 1, 1)
+    thin = fwl._replace(count=torch.full_like(fwl.count, count),
+                        bitmap=fwl.bitmap & 0x5555)
+    members = len(decode_free_worklist(thin)[1])
+    assert 0 < members < len(decode_free_worklist(fwl)[1])
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kp, thin, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    free_carve_plain(qd, qp, thin, params)
+    torch.cuda.synchronize()
+    assert int((qd != vol.data).sum()) > 1000
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+
+
+def _stress_candidates(cand, seed=0):
+    """``cand`` with its busiest tile filled to every slot (jittered copies
+    of its own candidates under new, unique block ids) and the next
+    busiest emptied. Returns (candidates, full tile, empty tile)."""
+    rng = np.random.default_rng(seed)
+    cand = cand.clone()
+    counts = (cand[:, :, 9] > 0.5).sum(dim=1)
+    order = torch.argsort(counts, descending=True, stable=True)
+    full, empty = int(order[0]), int(order[1])
+    n, max_ct = int(counts[full]), cand.shape[1]
+    assert n > 0
+    extra = cand[full, torch.arange(max_ct - n, device=cand.device) % n].clone()
+    jitter = torch.from_numpy(rng.uniform(0.995, 1.005, (max_ct - n, 4)).astype(np.float32))
+    jitter = jitter.to(cand.device)
+    extra[:, 3] *= jitter[:, 0]  # the plane moves along its normal
+    extra[:, 4:7] *= jitter[:, 1:]  # and its support centre
+    extra[:, 8] = 1.0e6 + torch.arange(max_ct - n, device=cand.device, dtype=torch.float32)
+    cand[full, n:] = extra
+    cand[empty] = 0.0
+    return cand, full, empty
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["vga", "qqvga"])
+def test_raycast_kernel_bit_identical_with_empty_and_full_tiles(cuda, size):
+    """K6 at 640x480 (96 candidates a tile) and at 160x120 (384), on the
+    planes of two fused frames with one tile emptied and one filled to
+    every slot: all 9 rows bit-identical to the plain version."""
+    intr, res, trunc, max_ct = (VGA, 256, 0.03, 96) if size == "vga" else (QQVGA, 128, 0.06, 384)
+    poses, frames = _stream(intr, 2, 0.3, cuda)
+    vol = tsdf_new(res, 3.0, trunc, device=cuda)
+    planes = torch.zeros(planes_shape(res), device=cuda)
+    for d, p in zip(frames, poses):
+        tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(cuda), intr)
+    pose = torch.from_numpy(poses[1]).to(cuda)
+    cand, full, empty = _stress_candidates(build_tile_candidates(planes, pose, intr, vol))
+    counts = (cand[:, :, 9] > 0.5).sum(dim=1)
+    assert cand.shape[1] == max_ct and int(counts[full]) == max_ct and int(counts[empty]) == 0
+    n_ut = -(-intr.width // 128)
+    params = _ray_params(pose, intr, 0.3, n_ut)
+    k = launch_raycast_kernel(cand, params, intr.height, n_ut * 128)
+    q = raycast_tiles_plain(cand, params, intr.height, n_ut * 128)
+    torch.cuda.synchronize()
+    assert torch.equal(k, q)
+
+    def tile(g):
+        b, ut = divmod(g, n_ut)
+        return q[:, b * 8:(b + 1) * 8, ut * 128:(ut + 1) * 128]
+
+    assert int((tile(full)[0] > 0).sum()) > 100
+    assert int((q[0] > 0).sum()) > intr.width * intr.height // 4
+    assert bool((tile(empty)[0] == 0).all()) and bool((tile(empty)[7] == -1).all())
+
+
+def _random_candidates(rng, intr, pose, max_ct):
+    """Seeded candidates for every tile of ``intr`` (0 to ``max_ct`` of them,
+    the first tile empty and the last full): support centres in or near
+    the tile's view at 0.05-4 m, some behind the camera or holding it,
+    radii 5 mm-0.5 m, planes through the centre facing the camera or not,
+    a fifth of them occluders, block ids unique in a tile."""
+    n_ut = -(-intr.width // 128)
+    n_tiles = intr.height // 8 * n_ut
+    cand = np.zeros((n_tiles, max_ct, 16), np.float32)
+    rot = pose[:3, :3]
+    for g in range(n_tiles):
+        n = 0 if g == 0 else max_ct if g == n_tiles - 1 else int(rng.integers(0, max_ct + 1))
+        b, ut = divmod(g, n_ut)
+        u = ut * 128 + rng.uniform(-30, 158, n)
+        v = b * 8 + rng.uniform(-20, 28, n)
+        z = rng.uniform(-0.5, 4.0, n)
+        c = np.stack([(u - intr.cx) / intr.fx * z, (v - intr.cy) / intr.fy * z, z], axis=1)
+        r = c @ rot  # camera to world, relative to the camera centre
+        nrm = -c / np.linalg.norm(c, axis=1, keepdims=True) + rng.normal(0, 0.5, (n, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        rad = 10.0 ** rng.uniform(-2.3, -0.3, n)
+        cand[g, :n, 0:3] = nrm
+        cand[g, :n, 3] = (nrm * r).sum(axis=1)
+        cand[g, :n, 4:7] = r
+        cand[g, :n, 7] = rad * rad
+        cand[g, :n, 8] = rng.permutation(4096)[:n]
+        cand[g, :n, 9] = 1.0
+        cand[g, :n, 10] = rng.random(n) < 0.2
+        cand[g, :n, 11] = rng.uniform(0, 0.05, n)
+    return cand
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", ["orthonormal", "skewed"])
+@pytest.mark.parametrize("size", ["vga", "qqvga"])
+def test_raycast_kernel_bit_identical_on_random_candidates(cuda, size, rotation):
+    """K6 on seeded random candidates, its pixel-box cull included: all 9
+    rows bit-identical to the plain version. A skewed rotation (rows
+    scaled by 1.01: no cull) takes the kernel's uncut path."""
+    rng = np.random.default_rng(6)
+    intr, max_ct = (VGA, 96) if size == "vga" else (QQVGA, 384)
+    q_, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = q_ * np.sign(np.linalg.det(q_))
+    if rotation == "skewed":
+        pose[:3, :3] *= 1.01
+    pose[3, :3] = rng.normal(size=3)
+    cand = torch.from_numpy(_random_candidates(rng, intr, pose.astype(np.float64), max_ct)).to(cuda)
+    n_ut = -(-intr.width // 128)
+    params = _ray_params(torch.from_numpy(pose).to(cuda), intr, 0.3, n_ut)
+    k = launch_raycast_kernel(cand, params, intr.height, n_ut * 128)
+    q = raycast_tiles_plain(cand, params, intr.height, n_ut * 128)
+    torch.cuda.synchronize()
+    assert int((q[0] > 0).sum()) > intr.width * intr.height // 10
+    assert int((q[8] < 1.0e9).sum()) > intr.width * intr.height // 20
+    assert torch.equal(k, q)
 
 
 @pytest.mark.gpu

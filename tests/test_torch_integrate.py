@@ -173,7 +173,7 @@ def test_unlisted_chunks_bit_identical():
     rng = np.random.default_rng(1)
     data0 = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (res,) * 3, dtype=np.int64).astype(np.int32))
     planes0 = torch.from_numpy(rng.normal(size=planes_shape(res)).astype(np.float32))
-    vol = tsdf_new(res, 3.0, TRUNC, device="cpu")._replace(data=data0.clone())
+    vol = tsdf_new(res, 3.0, TRUNC, dtype=torch.int32, device="cpu")._replace(data=data0.clone())
     planes = planes0.clone()
     d, p = torch.from_numpy(frames[0]), torch.from_numpy(poses[0])
     sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
@@ -194,7 +194,7 @@ def test_unlisted_chunks_bit_identical():
 
 
 def test_rejects_untileable_volume():
-    vol = tsdf_new(96, 3.0, TRUNC, device="cpu")
+    vol = tsdf_new(96, 3.0, TRUNC, dtype=torch.int32, device="cpu")
     with pytest.raises(ValueError):
         tsdf_integrate_stream(vol, torch.zeros(12, 12, 0, 16, 16), torch.zeros(120, 160),
                               torch.eye(4), INTR)
@@ -210,7 +210,7 @@ def test_worklist_matches_reference_at_resolution(res):
     jv = j_tsdf_new(res, 3.0, TRUNC, dtype=jnp.int32)
     want = sorted(j_decode_worklist(j_build_worklist(
         jnp.asarray(d), jnp.asarray(p), JINTR, res, jv.voxel_size, jv.origin, jv.trunc)))
-    tv = tsdf_new(res, 3.0, TRUNC, device="cpu")
+    tv = tsdf_new(res, 3.0, TRUNC, dtype=torch.int32, device="cpu")
     got = sorted(decode_worklist(build_worklist(
         torch.from_numpy(d), torch.from_numpy(p), INTR, res, tv.voxel_size, tv.origin, tv.trunc)))
     assert len(got) > 100

@@ -144,8 +144,25 @@ def test_packed_volume_layout_bit_identical():
     np.testing.assert_array_equal(tsdf.unpack_t(torch.from_numpy(got)).numpy(),
                                   np.asarray(jtsdf.unpack_t(jnp.asarray(want))))
     np.testing.assert_array_equal(tsdf.unpack_w(torch.from_numpy(got)).numpy(), w)
-    tv = tsdf.tsdf_new(128, 3.0, 0.06, device="cpu")
+    tv = tsdf.tsdf_new(128, 3.0, 0.06, dtype=torch.int32, device="cpu")
     jv = jtsdf.tsdf_new(128, 3.0, 0.06, dtype=jnp.int32)
     np.testing.assert_array_equal(tv.data.numpy(), np.asarray(jv.data))
+    for a, b in ((tv.origin, jv.origin), (tv.voxel_size, jv.voxel_size), (tv.trunc, jv.trunc)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_default_volume_layout_matches_reference():
+    """``tsdf_new`` with no dtype makes the reference's default volume: the
+    float32 (2, X, Y, Z) array (+1 tsdf, 0 weight), equal value for value."""
+    from housescan_tpu.kinfu import tsdf as jtsdf
+    from housescan_tpu_torch.kinfu import tsdf
+
+    tv = tsdf.tsdf_new(64, 3.0, 0.06, device="cpu")
+    jv = jtsdf.tsdf_new(64, 3.0, 0.06)
+    got, want = tv.data.numpy(), np.asarray(jv.data)
+    assert got.shape == want.shape == (2, 64, 64, 64)
+    assert got.dtype == want.dtype == np.float32
+    assert not tv.packed_i32 and tv.dims == (64, 64, 64)
+    np.testing.assert_array_equal(got, want)
     for a, b in ((tv.origin, jv.origin), (tv.voxel_size, jv.voxel_size), (tv.trunc, jv.trunc)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

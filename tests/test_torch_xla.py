@@ -139,7 +139,7 @@ def test_volume_layouts_and_config(stream):
 
     poses, frames = stream
     fv = tsdf.tsdf_new(64, 3.0, TRUNC, dtype=torch.float32, device="cpu")
-    pv = tsdf.tsdf_new(64, 3.0, TRUNC, device="cpu")
+    pv = tsdf.tsdf_new(64, 3.0, TRUNC, dtype=torch.int32, device="cpu")
     jf = j_tsdf.tsdf_new(64, 3.0, TRUNC)
     np.testing.assert_array_equal(fv.data.numpy(), np.asarray(jf.data))
     assert fv.data.shape == (2, 64, 64, 64) and not fv.packed_i32 and pv.packed_i32
