@@ -77,7 +77,10 @@ float32 volume. Phases, each fatal on failure:
      0.5 mm on jointly valid pixels, > 10 mm on fewer than 4%); then K8
      against its plain version (frame 1 on a volume carried from frame 0:
      volume, planes and chunk classes), K7 against its plain version on
-     the fused volume, and K8 against K4 from fresh volumes: the twin of
+     the fused volume (K8 bit-identical on classes, weights, tsdf and
+     planes; its chunk classes, its time by CUDA events, its device time
+     by launch by the profiler and its bandwidth against the bound
+     printed), and K8 against K4 from fresh volumes: the twin of
      the reference's test (128^3, 160x120: weights agree on >= 99.9% of
      voxels, the tsdf's 99th percentile |diff| < 1e-5 on jointly observed
      ones) and the orbit's frame 0 at full width (p99 < 1e-4, derived in
@@ -86,7 +89,9 @@ float32 volume. Phases, each fatal on failure:
      bound: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) for this run's
      inputs (H100 SXM data sheet; each input byte read once, each output
      byte written once); K4 and K5 on both layouts, K6 at 160x120 too;
-     each kernel's resident blocks an SM (the occupancy calculator);
+     K1's device time and an estimate of its instruction-issue floor
+     (its static SASS count for each warp at 4 a clock an SM, cuobjdump); each
+     kernel's resident blocks an SM (the occupancy calculator);
  13. profile three fusion steps of the kernel path (both layouts) and the
      XLA path: device kernel time per step against the timed pass's frame
      time (the device's busy share) and beside the readings before K5's
@@ -96,12 +101,15 @@ float32 volume. Phases, each fatal on failure:
      ``profile_xla.txt``.
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
-comparisons and empty lists, phase 12's times and resident blocks of the
-main path's kernels (K1, K3-K6) and phase 13's profile of the kernel
-path on both layouts, and prints no result line. It calls nothing that
-the package of the commit before K5's and K6's redesign lacks, so copied
-into a checkout of that commit it reads the same calls there: the before
-and after of a redesign, in turns within one run on the card.
+comparisons and empty lists, phase 12's times of the main path's kernels
+(K1, K3-K6) with K1's device time and estimated issue floor, K8 on dense-512's
+compare input and K7 on the orbit fused by K8 (phase 11's comparisons
+and readings, phase 12's times), every kernel's resident blocks an SM and phase 13's profile of the
+kernel path on both layouts, and prints no result line. It calls
+nothing that the package of the commit before K1's and K8's redesign
+lacks, so copied into a checkout of that commit it reads the same calls
+there: the before and after of a redesign, in turns within one run on
+the card.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
@@ -256,8 +264,8 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
     k = bilateral_filter_cuda(depth)
     q = bilateral_filter_plain(depth)
     errs["bilateral"] = float((k - q).abs().max())
-    if errs["bilateral"] > 2e-5:
-        fail(f"K1 bilateral differs from its plain version by {errs['bilateral']}")
+    if not torch.equal(k, q):
+        fail(f"K1 bilateral differs from its plain version by {errs['bilateral']} (0 required)")
     calls["bilateral"] = (lambda: bilateral_filter_cuda(depth), lambda: bilateral_filter_plain(depth))
     bounds["bilateral"] = bound(2 * h * w * 4, 9 * 49 * h * w)
 
@@ -341,12 +349,13 @@ ICP_ITERS = (10, 5, 4)  # the step's iterations a level, finest first
 
 def device_us(prof, reps):
     """{device kernel: (microseconds, launches) a call} of a profile over
-    ``reps`` calls (memory copies and fills left out)."""
+    ``reps`` calls (memory copies left out; a memset counts: it is part of
+    its wrapper's cost)."""
     avgs = prof.key_averages()
     attr = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") else "self_cuda_time_total"
     cuda = torch.autograd.DeviceType.CUDA
     return {e.key: (getattr(e, attr) / reps, e.count / reps) for e in avgs
-            if e.device_type == cuda and not e.key.startswith(("Memcpy", "Memset"))}
+            if e.device_type == cuda and not e.key.startswith("Memcpy")}
 
 
 def icp_level_inputs(st, depth, intr):
@@ -446,6 +455,51 @@ def stream_empty_list(st, depth, intr, card, reps=20):
     print(f"# K4 ({LAYOUTS[data.dtype]}) over {wl.desc.shape[0]} rows: count 0 {ms0:.4f} ms, count "
           f"{int(wl.count[0])} {ms1:.4f} ms (CUDA events) [{card}]", flush=True)
     return ms0, ms1
+
+
+def sass_instructions(symbol_part: str):
+    """SASS instructions of the first kernel of the built library whose
+    mangled name holds ``symbol_part`` (cuobjdump), or None where
+    cuobjdump is missing."""
+    from housescan_tpu_torch.ops import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", cuda_lib.build_info["path"]], capture_output=True,
+                         text=True, timeout=120).stdout
+    n, inside = 0, False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            if inside:
+                break
+            inside = symbol_part in ln
+        elif inside and ln.strip().startswith("/*") and "*/" in ln and ";" in ln:
+            n += 1
+    return n or None
+
+
+def k1_readings(intr, calls, card):
+    """K1 at the main path's shape: its device time by launch (profiler)
+    and an estimate of its instruction-issue floor from the static SASS
+    count: the kernel's SASS instructions (it is unrolled: each thread runs
+    them about once; the staging loop is counted once and branches that do
+    not run are counted too) for each of its warps, at 4 warp instructions
+    a clock on each SM at the card's maximum SM clock."""
+    k1 = kernel_device_us(calls["bilateral"][0], REPS["bilateral"][0])
+    # the radius-3 instance; a K1 built before the radius template reads not measured
+    n_sass = sass_instructions("bilateral_kernelILi3E")
+    warps = -(-intr.width // 128) * -(-intr.height // 4) * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    floor = "not measured"
+    if n_sass and mhz:
+        floor = (f"{warps * n_sass / (4 * sms * float(mhz[0]) * 1e6) * 1e3:.4f} ms ({n_sass} SASS "
+                 f"instructions a thread, {warps} warps, {sms} SMs at {mhz[0]} MHz)")
+    print(f"# K1 {intr.width}x{intr.height} device by launch: "
+          f"{', '.join(f'{k[:60]} {v[0]:.2f} us x{v[1]:.0f}' for k, v in k1.items())}; "
+          f"instruction-issue floor (estimate, static SASS count) {floor} [{card}]", flush=True)
 
 
 def occupancy_report(intr, card):
@@ -1022,6 +1076,118 @@ def k7_oracle(st, depth, intr):
     return diff, n, int(wv.sum())
 
 
+def kernel_device_us(fn, reps):
+    """``device_us`` of ``reps`` calls of ``fn`` after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_us(prof, reps)
+
+
+def compare_extract(vol, tag):
+    """K7 against its plain version on a fused volume: bit-identical
+    expected (both sum the moments in float64 and round once); bound 1e-5
+    on every field, valid flags identical. Returns (max abs err, timing
+    calls, bound)."""
+    from housescan_tpu_torch.ops.planes_cuda import (
+        _extract_params, extract_planes_plain, launch_extract_kernel,
+    )
+
+    params7 = _extract_params(vol, 6.0, RES // 8)
+    k7 = launch_extract_kernel(vol.data, params7)
+    q7 = extract_planes_plain(vol.data, params7)
+    torch.cuda.synchronize()
+    err7 = float((k7 - q7).abs().max())
+    n_valid = int((q7[:, :, :, 4] > 0.5).sum())
+    if err7 > 1e-5 or not torch.equal(k7[:, :, :, 4], q7[:, :, :, 4]) or n_valid < 1000:
+        fail(f"K7 differs from its plain version by {err7} ({n_valid} valid sub-blocks)")
+    print(f"# K7 compare (the fused {tag} volume): {n_valid} valid sub-blocks, max abs err "
+          f"{err7}", flush=True)
+    calls = (lambda: launch_extract_kernel(vol.data, params7),
+             lambda: extract_planes_plain(vol.data, params7))
+    # the volume's voxels read once (8 bytes), the planes written; ~30
+    # float ops a voxel (crossing tests, moment terms)
+    return err7, calls, bound(8 * RES ** 3 + k7.numel() * 4, 30 * RES ** 3)
+
+
+def compare_dense(intr, frames, pose_t, device, card, reps=10):
+    """K8 against its plain version on dense-512's compare input: frame 1 on
+    a float32 volume carried from frame 0, bit-identical expected
+    (--fmad=false, the same operation order): classes, weights, tsdf and
+    planes. Prints the chunk classes, the kernel's time (CUDA events),
+    its device time by launch (the profiler) and its achieved bandwidth
+    against the bound. Returns (max abs err, timing calls, bound)."""
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops.tsdf_cuda import (
+        CLS_BAND, CLS_FREE, CLS_SKIP, dense_inputs, dense_integrate_plain, launch_dense_kernel,
+        tsdf_integrate_with_planes,
+    )
+
+    v0 = tsdf_new(RES, 3.0, 0.03, dtype=torch.float32, device=device)
+    tsdf_integrate_with_planes(v0, frames[0], pose_t[0], intr)
+    mips, params = dense_inputs(v0, frames[1], pose_t[1], intr)
+    kd = v0.data.clone()
+    kc, kp = launch_dense_kernel(kd, mips, params)
+    qd = v0.data.clone()
+    qc, qp = dense_integrate_plain(qd, mips, params)
+    torch.cuda.synchronize()
+    err8 = max(float((kd - qd).abs().max()), float((kp - qp).abs().max()))
+    same = torch.equal(kc, qc) and torch.equal(kd, qd) and torch.equal(kp, qp)
+    if not same:
+        fail(f"K8 differs from its plain version: classes equal {torch.equal(kc, qc)}, "
+             f"weights equal {torch.equal(kd[1], qd[1])}, tsdf equal {torch.equal(kd[0], qd[0])}, "
+             f"planes equal {torch.equal(kp, qp)}, max abs err {err8}")
+    n_cls = {name: int((kc == c).sum()) for name, c in
+             (("SKIP", CLS_SKIP), ("FREE", CLS_FREE), ("BAND", CLS_BAND))}
+    n_visited = kc.numel() - n_cls["SKIP"]
+    # a voxel unobserved before the frame needs no tsdf read (the integrate
+    # weighs its old tsdf by 0, the fit skips it); a word that does not
+    # change need not be written (words compared as bits)
+    observed = int((v0.data[1] > 0).sum())
+    observed_after = int((kd[1] > 0).sum())
+    words = int((kd.view(torch.int32) != v0.data.view(torch.int32)).sum())
+    print(f"# K8 compare (frame 1 on frame 0): chunk classes {json.dumps(n_cls)} of {kc.numel()}, "
+          f"{observed} voxels observed before the frame, {observed_after} after, {words} volume "
+          f"words changed; classes, weights, tsdf and planes bit-identical", flush=True)
+    del kd, qd
+    scratch = v0.data
+    calls = (lambda: launch_dense_kernel(scratch, mips, params),
+             lambda: dense_integrate_plain(scratch, mips, params))
+    # the least bytes: every weight read, the tsdf of the voxels observed
+    # before the frame read, the changed words written, the frame read, the
+    # planes and classes written; ~30 float ops an observed voxel for the fit
+    # and ~60 a visited voxel for the integrate
+    io_bytes = intr.width * intr.height * 4 + kp.numel() * 4 + kc.numel() * 4
+    n_bytes = 4 * RES ** 3 + 4 * observed + 4 * words + io_bytes
+    k8_bound = bound(n_bytes, 30 * observed_after + 60 * CHUNK_VOXELS * n_visited)
+    # the looser bound of earlier readings, kept to compare with them: every voxel
+    # read (8 bytes), every visited chunk written whole
+    loose = bound(8 * RES ** 3 + 8 * CHUNK_VOXELS * n_visited + intr.width * intr.height * 4
+                  + kp.numel() * 4, 30 * RES ** 3 + 60 * CHUNK_VOXELS * n_visited)
+    ms = cuda_ms(calls[0], reps)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        calls[0]()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    split = kernel_device_us(calls[0], reps)
+    print(f"# K8 {ms:.4f} ms a call (CUDA events), the wrapper's host work {host_us:.1f} us a "
+          f"call, device by launch: "
+          f"{', '.join(f'{k[:60]} {v[0]:.1f} us x{v[1]:.0f}' for k, v in split.items())}; "
+          f"{n_bytes / 1e6:.1f} MB at bound {k8_bound[0]:.4f} ms ({k8_bound[1]}): achieved "
+          f"{n_bytes / ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f} "
+          f"({k8_bound[0] / ms * 100:.1f}% of the bound); the earlier loose bound (every voxel "
+          f"read, every visited chunk written whole) {loose[0]:.4f} ms, "
+          f"{loose[0] / ms * 100:.1f}% of it [{card}]", flush=True)
+    return err8, calls, k8_bound
+
+
 def run_dense(intr, poses, frames, device, card):
     """Phase 11, dense-512: path (B) with its gates, then K8 and K7 against
     their plain versions and K8 against K4. Returns the two kernels'
@@ -1030,14 +1196,8 @@ def run_dense(intr, poses, frames, device, card):
     from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
     from housescan_tpu_torch.kinfu.tsdf import tsdf_new
     from housescan_tpu_torch.ops import cuda_lib
-    from housescan_tpu_torch.ops.planes_cuda import (
-        _extract_params, extract_planes_plain, launch_extract_kernel,
-    )
     from housescan_tpu_torch.ops.raycast_planes import raycast_pallas
-    from housescan_tpu_torch.ops.tsdf_cuda import (
-        CLS_SKIP, dense_inputs, dense_integrate_plain, launch_dense_kernel,
-        tsdf_integrate_with_planes,
-    )
+    from housescan_tpu_torch.ops.tsdf_cuda import tsdf_integrate_with_planes
     from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
 
     pose_t = [torch.from_numpy(p).to(device) for p in poses]
@@ -1075,52 +1235,10 @@ def run_dense(intr, poses, frames, device, card):
         if not bool(torch.isfinite(m).all()) or cover <= 0.55 or med >= 0.0005 or tail >= 0.04:
             fail(f"{tag} depth quality at pose {k}: coverage {cover}, median {med}, tail {tail}")
 
-    # K7 against its plain version on the fused volume: bit-identical
-    # expected (both sum the moments in float64 and round once); bound
-    # 1e-5 on every field, valid flags identical
-    params7 = _extract_params(vol, 6.0, RES // 8)
-    k7 = launch_extract_kernel(vol.data, params7)
-    q7 = extract_planes_plain(vol.data, params7)
-    torch.cuda.synchronize()
-    err7 = float((k7 - q7).abs().max())
-    n_valid = int((q7[:, :, :, 4] > 0.5).sum())
-    if err7 > 1e-5 or not torch.equal(k7[:, :, :, 4], q7[:, :, :, 4]) or n_valid < 1000:
-        fail(f"K7 differs from its plain version by {err7} ({n_valid} valid sub-blocks)")
-    print(f"# K7 compare (the fused {tag} volume): {n_valid} valid sub-blocks, max abs err "
-          f"{err7}", flush=True)
-    k7_calls = (lambda: launch_extract_kernel(vol.data, params7),
-                lambda: extract_planes_plain(vol.data, params7))
-    # the volume's voxels read once (8 bytes), the planes written; ~30
-    # float ops a voxel (crossing tests, moment terms)
-    k7_bound = bound(8 * RES ** 3 + k7.numel() * 4, 30 * RES ** 3)
-    del k7, q7, maps
+    err7, k7_calls, k7_bound = compare_extract(vol, tag)
+    del maps
 
-    # K8 against its plain version: frame 1 on a volume carried from frame
-    # 0; bit-identical expected (--fmad=false, the same operation order)
-    v0 = fresh()
-    tsdf_integrate_with_planes(v0, frames[0], pose_t[0], intr)
-    mips, params = dense_inputs(v0, frames[1], pose_t[1], intr)
-    kd = v0.data.clone()
-    kc, kp = launch_dense_kernel(kd, mips, params)
-    qd = v0.data.clone()
-    qc, qp = dense_integrate_plain(qd, mips, params)
-    torch.cuda.synchronize()
-    err8 = max(float((kd - qd).abs().max()), float((kp - qp).abs().max()))
-    if not torch.equal(kc, qc) or not torch.equal(kd[1], qd[1]) or err8 > 1e-5:
-        fail(f"K8 differs from its plain version: classes equal {torch.equal(kc, qc)}, "
-             f"weights equal {torch.equal(kd[1], qd[1])}, max abs err {err8}")
-    n_visited = int((kc != CLS_SKIP).sum())
-    print(f"# K8 compare (frame 1 on frame 0): {n_visited} of {kc.numel()} chunks visited "
-          f"({int((kc == 1).sum())} FREE), max abs err {err8}", flush=True)
-    del kd, qd
-    scratch = v0.data
-    k8_calls = (lambda: launch_dense_kernel(scratch, mips, params),
-                lambda: dense_integrate_plain(scratch, mips, params))
-    # every voxel read once by the column fit (8 bytes), the visited chunks
-    # written once, the frame read, the planes written; ~30 float ops a
-    # voxel for the fit and ~60 a visited voxel for the integrate
-    k8_bound = bound(8 * RES ** 3 + 8 * CHUNK_VOXELS * n_visited + intr.width * intr.height * 4
-                     + kp.numel() * 4, 30 * RES ** 3 + 60 * CHUNK_VOXELS * n_visited)
+    err8, k8_calls, k8_bound = compare_dense(intr, frames, pose_t, device, card)
 
     # K8 against K4 on frame 0 from fresh volumes. The reference's
     # test_matches_dense_pallas_kernel (128^3, 0.06 m truncation, 160x120)
@@ -1233,14 +1351,40 @@ def time_f32(f32, card):
 
 def probe(intr, poses, frames, device, card):
     """``--probe``: phase 4, phase 7's kernels, phase 12's times of the
-    main path's kernels on both layouts and their resident blocks an SM,
+    main path's kernels on both layouts (K1's device time and estimated issue floor
+    too), K8 on dense-512's compare input (bit-identical, chunk classes,
+    device time by launch, bandwidth) and K7 on the orbit fused by K8,
+    both then timed as in phase 12, every kernel's resident blocks an SM,
     and phase 13's device time a step on both layouts."""
     errs, calls, bounds, _, _ = box_kernels(intr, poses, frames, device, card)
     f32, st, _ = f32_kernels(intr, poses, frames, device, card)
     del st
     torch.cuda.empty_cache()
     time_kernels(list(calls), calls, bounds, card)
+    k1_readings(intr, calls, card)
     time_f32(f32, card)
+    # K8 on dense-512's compare input and K7 on the orbit fused by K8 (phase
+    # 11), timed as phase 12 times them
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops.tsdf_cuda import tsdf_integrate_with_planes
+
+    pose_t = [torch.from_numpy(p).to(device) for p in poses]
+    dense = {}
+    _, dense["tsdf_dense"], k8_bound = compare_dense(intr, frames, pose_t, device, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = tsdf_new(RES, 3.0, 0.03, dtype=torch.float32, device=device)
+    for d, p in zip(frames, pose_t):
+        vol, _ = tsdf_integrate_with_planes(vol, d, p, intr)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    print(f"# dense-{RES}: {N_FRAMES + 1} frames fused by K8 in {fuse_s:.4f} s = "
+          f"{fuse_s / (N_FRAMES + 1) * 1000:.3f} ms/frame (host clock, K8 warm) [{card}]",
+          flush=True)
+    _, dense["planes_extract"], k7_bound = compare_extract(vol, f"dense-{RES}")
+    time_kernels(list(dense), dense, {"tsdf_dense": k8_bound, "planes_extract": k7_bound}, card)
+    del dense, vol
+    torch.cuda.empty_cache()
     occupancy_report(intr, card)
     for tag, kw, name, before in PROFILES[:2]:
         report_profile(tag, intr, poses, frames, device, card, None, kw, name, before)
@@ -1328,6 +1472,7 @@ def main() -> None:
                          planes_extract=dense["launches"]["planes_extract"],
                          tsdf_dense=dense["launches"]["tsdf_dense"])
     times = time_kernels(list(KERNELS) + [SMALL_K6], calls, bounds, card, path_launches)
+    k1_readings(intr, calls, card)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         bound_ms, bound_by = bounds[name]

@@ -8,10 +8,13 @@
 //
 // A fit reads its voxels through an accessor tw(ix, iy, z, t, w); the
 // chunk kernels keep the chunk in shared memory, as floats (HsSmemChunk,
-// K7, K8; with one slice of z-halo where the +z crossings run on into the
-// next chunk, K8's columns) or in the volume's own cells (HsStagedChunk,
-// K4). Where the sub-blocks lie and what they are called come in as
-// HsFitGeom, so one fit serves chunk ids (K4, K7) and column ids (K8).
+// K7; K8's own accessor reads the +z halo from the next chunk's buffer,
+// where the crossings run on along its columns) or in the volume's own
+// cells (HsStagedChunk, K4). Where the sub-blocks lie and what they are
+// called come in as HsFitGeom, so one fit serves chunk ids (K4, K7) and
+// column ids (K8). The eigen analysis splits into the shape (from the
+// moments alone) and the fields (where the sub-block lies), so K8 computes
+// the shape of an unobserved sub-block once.
 #pragma once
 
 #include "common.cuh"
@@ -93,35 +96,37 @@ __device__ __forceinline__ void hs_crossing_terms(double* acc, bool crossing, fl
 }
 
 // Moments of voxel (ix, iy, z); the +z crossing counts only for z < z_lim
-// (the +x and +y ones stay inside the 8 x 8 column).
+// (the +x and +y ones stay inside the 8 x 8 column). Every term needs the
+// voxel observed (weight > 0): an unobserved voxel reads no neighbour and
+// adds nothing. Returns whether it was observed.
 template <class Tw>
-__device__ __forceinline__ void hs_voxel_moments(double* acc, const Tw& tw, int ix, int iy, int z,
+__device__ __forceinline__ bool hs_voxel_moments(double* acc, const Tw& tw, int ix, int iy, int z,
                                                  int z_lim) {
   float tv, wv;
   tw(ix, iy, z, tv, wv);
-  const bool obs = wv > 0.0f;
+  if (!(wv > 0.0f)) return false;
   const float x = (float)ix, yf = (float)iy;
   const float zz = (float)(z & 7);
   {  // +z neighbour
     float tn, wn;
     tw(ix, iy, z < z_lim ? z + 1 : z, tn, wn);
-    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && z < z_lim, tv,
-                      tn, wv, wn, x, yf, zz, 2);
+    hs_crossing_terms(acc, wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && z < z_lim, tv, tn, wv,
+                      wn, x, yf, zz, 2);
   }
   {  // +y neighbour
     float tn, wn;
     tw(ix, iy < 7 ? iy + 1 : iy, z, tn, wn);
-    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && iy < 7, tv, tn,
-                      wv, wn, x, yf, zz, 1);
+    hs_crossing_terms(acc, wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && iy < 7, tv, tn, wv, wn,
+                      x, yf, zz, 1);
   }
   {  // +x neighbour
     float tn, wn;
     tw(ix < 7 ? ix + 1 : ix, iy, z, tn, wn);
-    hs_crossing_terms(acc, obs && wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && ix < 7, tv, tn,
-                      wv, wn, x, yf, zz, 0);
+    hs_crossing_terms(acc, wn > 0.0f && ((tv < 0.0f) != (tn < 0.0f)) && ix < 7, tv, tn, wv, wn,
+                      x, yf, zz, 0);
   }
   // the band terms (the band flag times each; off the band zeros, skipped)
-  if (!(obs && fabsf(tv) < 0.99f)) return;
+  if (!(fabsf(tv) < 0.99f)) return true;
   acc[11] += 1.0;
   acc[12] += (double)tv;
   acc[13] += (double)x;
@@ -130,6 +135,7 @@ __device__ __forceinline__ void hs_voxel_moments(double* acc, const Tw& tw, int 
   acc[16] += (double)(x * tv);
   acc[17] += (double)(yf * tv);
   acc[18] += (double)(zz * tv);
+  return true;
 }
 
 struct HsInv3 {
@@ -151,11 +157,18 @@ __device__ __forceinline__ float hs_inv_iter(const HsInv3& c, float& bx, float& 
   return norm;
 }
 
-// Fields of sub-block ``sub`` of a chunk from its 19 float moments.
-static __device__ void hs_plane_fields(const float* acc, const HsFitGeom& g, float sub,
-                                       float* out) {
+// What a sub-block's 19 float moments give before its place in the volume
+// enters: the signed unit normal, the centroid in the sub-block, the count,
+// the smallest eigenvalue, the in-plane radius and the shape tests.
+struct HsPlaneShape {
+  float nx, ny, nz, mx, my, mz, cnt, lam_min, r_inplane;
+  bool ok;  // ok_plane && ok_spread
+};
+
+static __device__ HsPlaneShape hs_plane_shape(const float* acc) {
   const float ridge = 1e-4f;
-  const float cnt = acc[10];
+  HsPlaneShape o;
+  o.cnt = acc[10];
   const float n0 = hs_clamp_min(acc[0], 1e-6f);
   const float mx = acc[1] / n0, my = acc[2] / n0, mz = acc[3] / n0;
   const float cxx = hs_clamp_min(acc[4] / n0 - mx * mx, 0.0f);
@@ -209,53 +222,80 @@ static __device__ void hs_plane_fields(const float* acc, const HsFitGeom& g, flo
   const float gy_o = acc[17] / g0 - gmy * gs;
   const float gz_o = acc[18] / g0 - gmz * gs;
   const float sign = (nx * gx_o + ny * gy_o + nz * gz_o < 0.0f) ? -1.0f : 1.0f;
-  nx = nx * sign;
-  ny = ny * sign;
-  nz = nz * sign;
+  o.nx = nx * sign;
+  o.ny = ny * sign;
+  o.nz = nz * sign;
+  o.mx = mx;
+  o.my = my;
+  o.mz = mz;
+  o.lam_min = lam_min;
+  o.r_inplane = 1.8f * sqrtf(hs_clamp_min(trace - lam_min, 0.0f));
+  o.ok = ok_plane && ok_spread;
+  return o;
+}
 
-  const float wx = g.ox + ((float)(g.ci * 8) + mx + 0.5f) * g.vs;
-  const float wy = g.oy + ((float)(g.cj * 8) + my + 0.5f) * g.vs;
-  const float wz = g.oz + (g.z_base + sub * 8.0f + mz + 0.5f) * g.vs;
-  const float d = nx * wx + ny * wy + nz * wz;
+// The 16 fields of sub-block ``sub`` of a chunk from its shape.
+__device__ __forceinline__ void hs_plane_emit(const HsPlaneShape& sh, const HsFitGeom& g,
+                                              float sub, float* out) {
+  const float wx = g.ox + ((float)(g.ci * 8) + sh.mx + 0.5f) * g.vs;
+  const float wy = g.oy + ((float)(g.cj * 8) + sh.my + 0.5f) * g.vs;
+  const float wz = g.oz + (g.z_base + sub * 8.0f + sh.mz + 0.5f) * g.vs;
+  const float d = sh.nx * wx + sh.ny * wy + sh.nz * wz;
 
-  const bool valid = (cnt >= g.min_count) && ok_plane && ok_spread;
+  const bool valid = (sh.cnt >= g.min_count) && sh.ok;
   const float vf = valid ? 1.0f : 0.0f;
-  const float r_inplane = 1.8f * sqrtf(hs_clamp_min(trace - lam_min, 0.0f));
-  out[0] = nx * vf;
-  out[1] = ny * vf;
-  out[2] = nz * vf;
+  out[0] = sh.nx * vf;
+  out[1] = sh.ny * vf;
+  out[2] = sh.nz * vf;
   out[3] = d * vf;
   out[4] = vf;
-  out[5] = cnt;
+  out[5] = sh.cnt;
   out[6] = (float)g.sid_base + sub;
-  out[7] = (r_inplane + 1.5f) * g.vs;
+  out[7] = (sh.r_inplane + 1.5f) * g.vs;
   out[8] = wx;
   out[9] = wy;
   out[10] = wz;
   out[11] = 0.0f;
-  out[12] = lam_min;
+  out[12] = sh.lam_min;
   out[13] = 0.0f;
   out[14] = 0.0f;
   out[15] = 0.0f;
 }
 
-// Warp fit of sub-block s (z in [8 s, 8 s + 8) of the chunk): lane l takes
-// z = 8 s + l % 8 and rows iy = l / 8 + 4 k of every ix; the moments are
-// summed in double over the warp, and lane 0 writes every field but 11
-// into fields[k][s] (shared memory, (HS_N_FIELDS, HS_NSUB)).
+// Fields of sub-block ``sub`` of a chunk from its 19 float moments.
+__device__ __forceinline__ void hs_plane_fields(const float* acc, const HsFitGeom& g, float sub,
+                                                float* out) {
+  hs_plane_emit(hs_plane_shape(acc), g, sub, out);
+}
+
+// Warp moments of sub-block s (z in [8 s, 8 s + 8) of the chunk): lane l
+// takes z = 8 s + l % 8 and rows iy = l / 8 + 4 k of every ix; the
+// moments are summed in double over the warp into lane 0's acc. A warp
+// with no observed voxel has only zero terms: its sums stay 0 without the
+// shuffles (exact).
+template <class Tw>
+__device__ __forceinline__ void hs_subblock_moments_warp(const Tw& tw, int s, int lane, int z_lim,
+                                                         double* acc) {
+#pragma unroll
+  for (int k = 0; k < HS_NMOM; ++k) acc[k] = 0.0;
+  const int zv = s * 8 + (lane & 7);
+  bool obs = false;
+  for (int ix = 0; ix < 8; ++ix)
+    for (int iy = lane >> 3; iy < 8; iy += 4) obs |= hs_voxel_moments(acc, tw, ix, iy, zv, z_lim);
+  if (!__any_sync(HS_FULL_MASK, obs)) return;
+#pragma unroll
+  for (int k = 0; k < HS_NMOM; ++k)
+    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(HS_FULL_MASK, acc[k], o);
+}
+
+// Warp fit of sub-block s: its moments, then lane 0 writes every field but
+// 11 into fields[k][s] (shared memory, (HS_N_FIELDS, HS_NSUB)).
 template <class Tw>
 __device__ __forceinline__ void hs_fit_subblock_warp(const Tw& tw, int s, int lane, int z_lim,
                                                      const HsFitGeom& g, float sub,
                                                      float (*fields)[HS_NSUB]) {
   double acc[HS_NMOM];
-#pragma unroll
-  for (int k = 0; k < HS_NMOM; ++k) acc[k] = 0.0;
-  const int zv = s * 8 + (lane & 7);
-  for (int ix = 0; ix < 8; ++ix)
-    for (int iy = lane >> 3; iy < 8; iy += 4) hs_voxel_moments(acc, tw, ix, iy, zv, z_lim);
-#pragma unroll
-  for (int k = 0; k < HS_NMOM; ++k)
-    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(HS_FULL_MASK, acc[k], o);
+  hs_subblock_moments_warp(tw, s, lane, z_lim, acc);
   if (lane == 0) {
     float accf[HS_NMOM], f[HS_N_FIELDS];
     for (int k = 0; k < HS_NMOM; ++k) accf[k] = (float)acc[k];

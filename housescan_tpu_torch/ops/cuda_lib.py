@@ -81,11 +81,11 @@ _SIGNATURES = {
     # vol, layout, planes, nx, ny, nz, params, stream
     "hs_planes_extract": [_P, _I, _P, _I, _I, _I, _P, _P],
     # vol, nx, ny, nz, mip0, h0, w0, mip1, h1, w1, mip2, h2, w2, l3, h3, w3,
-    # l3min, l3max, l3valid, params, cls, planes, stream
+    # l3min, l3max, l3valid, params, cls, planes, next_col, grid, stream
     "hs_tsdf_dense": [
         _P, _I, _I, _I,
         _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _P,
     ],
     # cand, n_tiles, max_ct, params, out, h, w_pad, stream
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
@@ -102,7 +102,7 @@ OCCUPANCY = {
     "raycast_tiles": ("hs_raycast_tiles_occupancy", ("raycast_tiles_kernel",)),
     "solve6": ("hs_solve6_occupancy", ("solve6_kernel",)),
     "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32")),
-    "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel", "tsdf_dense_fit_kernel")),
+    "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel",)),
 }
 for _fn, _ in OCCUPANCY.values():
     _SIGNATURES[_fn] = [_I, _P]

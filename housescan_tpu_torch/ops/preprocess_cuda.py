@@ -5,14 +5,34 @@ Replaces ``housescan_tpu/ops/preprocess_pallas.py:_kernel`` (via
 (2r+1)^2 window: Gaussian-in-space times biweight-in-range weights,
 0 = invalid depth, taps outside the image weigh 0.
 
-CUDA kernel ``csrc/bilateral.cu``: one thread per pixel, 49 taps read
-through the L1/texture path. At 640x480 it reads 49 x 1.2 MB (mostly
-L1/L2 hits) and writes 1.2 MB; it is bound by the ~10 float ops per tap,
-about 15 MFLOP a frame, far below the card's rate, so a launch is a few
-microseconds of latency. The spatial weights are computed once per
-launch on the host with ``exp`` in double precision and rounded to
-float32, as ``math.exp`` is in the reference, and reach the kernel in its
-parameter space.
+CUDA kernel ``csrc/bilateral.cu``. At 640x480 and radius 3 it reads and
+writes 1.2 MB each and does ~10 float operations a tap, 15 M taps: its
+bound by operations is 0.002 ms, but the kernel builds with
+``--fmad=false`` (every multiply and add issues alone), so what holds it
+is instruction issue: the radius-3 kernel has ~15 instructions a tap
+and pixel (2,984 a thread in its static SASS), so an estimate of its
+issue floor is 7.2 M warp instructions, 0.0069 ms at four a clock on
+each of 132 SMs at 1,980 MHz (``chip_smoke.py``'s estimate: the static
+count, the staging loop counted once).
+
+Design: a block of 32 x 4 threads owns a 128 x 4 tile of the output and
+stages it with an r-pixel halo in shared memory, 0 outside the image, so
+the taps need no bounds compares and no global loads. Each thread
+computes 4 adjacent pixels of a row, loading each tap row's 4 + 2r
+values once with 16-byte shared loads and reusing them from registers.
+The radius is a template parameter (0..7): the taps unroll and each
+spatial weight is read at a compile-time index of the by-value
+parameter (the constant bank). The weights are computed once per launch
+on the host with ``exp`` in double precision and rounded to float32, as
+``math.exp`` is in the reference. Each pixel runs this module's plain
+float32 operations in their order (dy outer, dx inner; tap * wr, then
+* wr; the two sums; one division), so the kernel is bit-identical to
+``bilateral_filter_plain``.
+
+CUDA C++ rather than Triton: the per-radius template gives every tap its
+weight as a compile-time constant of a fully unrolled loop, and the
+16-byte register reuse of a tap row is written by hand; the library
+builds with ``--fmad=false``, which the kernel's bit-identity needs.
 """
 
 from __future__ import annotations
@@ -28,6 +48,8 @@ def _shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """Zero-filled shift: position p holds img[p - (dy, dx)]."""
     h, w = img.shape
     out = torch.zeros_like(img)
+    if abs(dy) >= h or abs(dx) >= w:  # shifted wholly outside the image
+        return out
     out[max(dy, 0) : h + min(dy, 0), max(dx, 0) : w + min(dx, 0)] = img[
         max(-dy, 0) : h - max(dy, 0), max(-dx, 0) : w - max(dx, 0)
     ]

@@ -41,12 +41,31 @@ Per chunk, the reference's own rules (not K4's):
 The reference loops over 4 z-chunks of the column whatever R is (exact at
 512^3); the port takes the column's R/128 chunks.
 
-CUDA kernel, ``csrc/tsdf_dense.cu``, two launches: one block per chunk
-integrates (a SKIP chunk is neither read nor written), then one block per
-chunk fits the chunk's 16 sub-blocks with the device fit of
-``csrc/planes.cuh``, reading the next chunk's first z-slice as a halo.
-Bound: device-memory bytes: every voxel read once by the fit, every
-visited chunk written once.
+CUDA kernel, ``csrc/tsdf_dense.cu``, ONE launch in place. Bound:
+device-memory bytes (every weight read, the tsdf of the voxels observed
+before the frame read, the changed words written, the planes and classes
+written; the kernel itself reads every voxel once). A persistent grid
+(at most the resident blocks an SM times the SMs, ``_card``) walks the
+columns (each block claims its next column from a counter, zeroed by
+the launch), each block its columns' chunks in
+z order through a ring of three chunk buffers in shared memory, staged two
+chunks ahead with bulk copies on mbarriers. Per chunk: a conservative
+frustum test of its corner voxels (in double, with a margin above the
+per-voxel float32 error) makes most SKIP chunks cost no per-voxel pass;
+else the classifier above, each voxel projected once and kept in
+registers for the read-modify-write; only changed cells are written back
+(a SKIP chunk is never written); then the fit of the chunk before it,
+with this chunk's first slice as the halo after its integrate, and of
+this chunk where it ends the column. A sub-block without an observed
+voxel has all-zero moments: its eigen analysis is computed once a block.
+The kernel writes every lane of the planes tile (zeros past R/8), so the
+wrapper allocates it without a fill. The outputs are bit-identical to
+``dense_integrate_plain``.
+
+CUDA C++ rather than Triton: the kernel stages chunks with Hopper's bulk
+copies completing on mbarriers, runs a persistent per-block pipeline
+over a shared-memory ring, and shares the double-sum plane fit of
+``csrc/planes.cuh`` with K4 and K7.
 """
 
 from __future__ import annotations
@@ -61,9 +80,11 @@ from housescan_tpu_torch.ops.tsdf_stream import (
     BIG,
     CHUNK_Z,
     PLAIN_BATCH,
+    _card,
     _stream_params,
     chunk_camera,
     chunk_cells,
+    stream_grid,
 )
 
 WIN_V = 32
@@ -271,8 +292,10 @@ def dense_integrate_plain(data, mips, params):
 
 
 def launch_dense_kernel(data, mips, params):
-    """The CUDA K8 launches (integrate, then the column fit) on the
-    float32 (2, R, R, R) ``data``, in place: (chunk classes, planes)."""
+    """The CUDA K8 launch (one, over every column) on the float32
+    (2, R, R, R) ``data``, in place: (chunk classes, planes). The kernel
+    writes every lane of the planes, so they are allocated without a
+    fill."""
     layout, dims = cuda_lib.volume_layout("tsdf_dense", data)
     if layout != cuda_lib.LAYOUT_F32:
         raise ValueError("tsdf_dense: the kernel takes the float32 layout")
@@ -280,9 +303,13 @@ def launch_dense_kernel(data, mips, params):
     if params.numel() < 26 or any(m.dim() != 2 for m in mips):
         raise ValueError("tsdf_dense: bad params or mip shapes")
     nx, ny, nz = dims
+    if nx % 8 or ny % 8 or nz % CHUNK_Z or nz // SUB_Z > LANES:
+        raise ValueError(f"tsdf_dense: a volume of (8, 8, 128) chunks, R <= 1024, got {dims}")
     nbx, nby, nzc = nx // 8, ny // 8, nz // CHUNK_Z
     cls = torch.empty(nbx * nby * nzc, dtype=torch.int32, device=data.device)
-    planes = torch.zeros((nbx, nby, N_FIELDS, LANES), dtype=torch.float32, device=data.device)
+    planes = torch.empty((nbx, nby, N_FIELDS, LANES), dtype=torch.float32, device=data.device)
+    grid = stream_grid(nbx * nby, *_card("tsdf_dense", "tsdf_dense_kernel", data.device.index))
+    next_col = torch.empty(1, dtype=torch.int32, device=data.device)  # zeroed by the launch
     m0, m1, m2, l3, l3min, l3max, l3valid = mips
     rc = cuda_lib.load().hs_tsdf_dense(
         data.data_ptr(), nx, ny, nz,
@@ -291,7 +318,8 @@ def launch_dense_kernel(data, mips, params):
         m2.data_ptr(), m2.shape[0], m2.shape[1],
         l3.data_ptr(), l3.shape[0], l3.shape[1],
         l3min.data_ptr(), l3max.data_ptr(), l3valid.data_ptr(),
-        params.data_ptr(), cls.data_ptr(), planes.data_ptr(), cuda_lib.stream_ptr(),
+        params.data_ptr(), cls.data_ptr(), planes.data_ptr(), next_col.data_ptr(), grid,
+        cuda_lib.stream_ptr(),
     )
     cuda_lib.check(rc, "hs_tsdf_dense")
     cuda_lib.launch_counts["tsdf_dense"] += 1

@@ -438,13 +438,16 @@ def stream_grid(n_items: int, resident: int, n_sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _card(kernel: str, layout: int, device: int):
-    """(resident blocks an SM of ``kernel`` (K4 or K5) on ``layout``, SMs)
-    of CUDA device ``device``."""
+def _card(kernel: str, key: str, device: int):
+    """(resident blocks an SM of ``kernel``'s instance ``key`` (its keys in
+    ``cuda_lib.OCCUPANCY``), SMs) of CUDA device ``device``."""
     with torch.cuda.device(device):
-        occ = cuda_lib.occupancy(kernel)
-        return (occ["packed" if layout == cuda_lib.LAYOUT_PACKED else "float32"],
-                cuda_lib.device_limits()[0])
+        return cuda_lib.occupancy(kernel)[key], cuda_lib.device_limits()[0]
+
+
+def _layout_key(layout: int) -> str:
+    """K4's and K5's occupancy key of a volume layout."""
+    return "packed" if layout == cuda_lib.LAYOUT_PACKED else "float32"
 
 
 def launch_stream_kernel(data, planes, desc, count, mips, params):
@@ -460,7 +463,7 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
         raise ValueError("tsdf_stream: bad volume, planes, work-list, params or mip shapes")
     nx, ny, nz = dims
     m0, m1, m2, l3 = mips
-    grid = stream_grid(desc.shape[0], *_card("tsdf_stream", layout, data.device.index))
+    grid = stream_grid(desc.shape[0], *_card("tsdf_stream", _layout_key(layout), data.device.index))
     if grid < 1 and desc.shape[0]:
         raise ValueError("tsdf_stream: no block of the kernel fits on an SM")
     rc = cuda_lib.load().hs_tsdf_stream(
@@ -491,7 +494,7 @@ def launch_free_kernel(data, planes, fwl: FreeWorkList, params):
             or dims[0] % 32 or dims[1] % 32):
         raise ValueError("tsdf_free: bad volume, planes, free work-list or params shapes")
     nx, ny, nz = dims
-    grid = stream_grid(16 * n_sb, *_card("tsdf_free", layout, data.device.index))
+    grid = stream_grid(16 * n_sb, *_card("tsdf_free", _layout_key(layout), data.device.index))
     if grid < 1 and n_sb:
         raise ValueError("tsdf_free: no block of the kernel fits on an SM")
     rc = cuda_lib.load().hs_tsdf_free(

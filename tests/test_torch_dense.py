@@ -21,6 +21,12 @@ Tolerances:
     lanes past R/8 zero in both;
   * packed: weights identical, the tsdf within one quantization step
     (1/32767) on >= 99.9% of observed voxels, the same plane bounds.
+
+A wall frame (constant depth, the camera 3 m before the cube's centre
+looking along +z, the wall at the centre) goes through both at R = 128 and
+256 with the same bounds: at 256 the wall lies on the boundary between
+the column's two chunks, so its planes come only from the +z crossing
+into the next chunk, read after that chunk's integrate.
 """
 
 import pytest
@@ -38,8 +44,10 @@ from housescan_tpu.ops.tsdf_pallas import tsdf_integrate_with_planes as j_integr
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.ops import cuda_lib
+from housescan_tpu_torch.ops import tsdf_cuda
 from housescan_tpu_torch.ops.tsdf_cuda import (
     dense_inputs,
+    dense_integrate_plain,
     launch_dense_kernel,
     tsdf_integrate_pallas,
     tsdf_integrate_with_planes,
@@ -94,7 +102,7 @@ def packed():
     return dict(frames=out, vol=tv)
 
 
-def _planes_agree(jp, tp):
+def _planes_agree(jp, tp, res=RES):
     jv, tv = jp[:, :, 4] > 0.5, tp[:, :, 4] > 0.5
     assert jv.sum() > 30
     assert (jv == tv).mean() >= 0.999
@@ -102,7 +110,7 @@ def _planes_agree(jp, tp):
     for f in range(16):
         atol = 1e-4 if f in (0, 1, 2, 3, 12) else 1e-5
         np.testing.assert_allclose(tp[:, :, f][both], jp[:, :, f][both], atol=atol)
-    nsub = RES // 8
+    nsub = res // 8
     assert not tp[:, :, :, nsub:].any() and not jp[:, :, :, nsub:].any()
 
 
@@ -177,3 +185,83 @@ def test_exported_from_ops():
     from housescan_tpu_torch import ops
 
     assert ops.tsdf_integrate_pallas is tsdf_integrate_pallas
+
+
+def _wall(res, depth_m=3.0):
+    """The camera 3 m before the cube's centre looking along +z and a
+    constant-depth frame: (reference volume, planes, port volume, planes)
+    from fresh float32 volumes of resolution ``res``."""
+    pose = np.eye(4, dtype=np.float32)
+    pose[3, 2] = -3.0
+    depth = np.full((120, 160), depth_m, np.float32)
+    jv, jp = j_integrate(j_tsdf_new(res, 3.0, TRUNC, dtype=jnp.float32), jnp.asarray(depth),
+                         jnp.asarray(pose), JINTR, interpret=True)
+    tv, tp = tsdf_integrate_with_planes(tsdf_new(res, 3.0, TRUNC, dtype=torch.float32, device="cpu"),
+                                        torch.from_numpy(depth), torch.from_numpy(pose), INTR)
+    return jv, np.asarray(jp), tv, tp.numpy()
+
+
+@pytest.mark.parametrize("res", [128, 256])
+def test_wall_on_chunk_boundary_matches_reference(res):
+    """The wall between voxels R/2 - 1 and R/2: weights identical, tsdf
+    within 1e-5, the planes agree, and every valid plane lies in
+    sub-block R/16 - 1 (at R = 256 the last of chunk 0, fitted only from
+    the crossing into chunk 1)."""
+    torch.set_num_threads(1)
+    jv, jp, tv, tp = _wall(res)
+    jw, tw = np.asarray(jv.weight), tv.weight.numpy()
+    np.testing.assert_array_equal(tw, jw)
+    obs = jw > 0
+    assert obs.sum() > 10000
+    assert np.abs(tv.tsdf.numpy() - np.asarray(jv.tsdf))[obs].max() <= 1e-5
+    _planes_agree(jp, tp, res)
+    valid = (tp[:, :, 4] > 0.5).sum(axis=(0, 1))
+    lane = res // 16 - 1
+    assert valid[lane] > 100 and valid.sum() == valid[lane]
+    assert ((jp[:, :, 4] > 0.5).sum(axis=(0, 1)) == valid).all()
+
+
+@pytest.mark.parametrize("res", [128, 256])
+def test_plain_planes_zero_past_the_column(res):
+    """The plain version writes exactly zero into every lane past R/8 of
+    each column's planes tile (the kernel writes them itself)."""
+    vol = tsdf_new(res, 3.0, TRUNC, dtype=torch.float32, device="cpu")
+    pose = torch.eye(4)
+    pose[3, 2] = -3.0
+    mips, params = dense_inputs(vol, torch.full((120, 160), 3.0), pose, INTR)
+    _, planes = dense_integrate_plain(vol.data, mips, params)
+    assert tuple(planes.shape) == (res // 8, res // 8, 16, 128)
+    assert int((planes[:, :, 4, : res // 8] > 0.5).sum()) > 100
+    assert torch.equal(planes[:, :, :, res // 8 :], torch.zeros_like(planes[:, :, :, res // 8 :]))
+
+
+def test_kernel_wrapper_allocates_planes_without_fill(monkeypatch):
+    """``launch_dense_kernel`` hands the kernel an unfilled planes tensor
+    (the kernel writes every lane) and its persistent grid: no
+    ``torch.zeros`` / ``torch.full`` / ``fill_`` in the launch. The CUDA
+    checks and the library are stubbed so the wrapper runs on the CPU."""
+    vol = tsdf_new(RES, 3.0, TRUNC, dtype=torch.float32, device="cpu")
+    mips, params = dense_inputs(vol, torch.zeros(120, 160), torch.eye(4), INTR)
+    seen = {}
+
+    class Lib:
+        def hs_tsdf_dense(self, *args):
+            seen["planes_ptr"], seen["grid"] = args[-4], args[-2]
+            return 0
+
+    def no_fill(*args, **kwargs):
+        raise AssertionError("the planes were filled on the host side of the launch")
+
+    monkeypatch.setattr(cuda_lib, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "load", lambda: Lib())
+    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(tsdf_cuda, "_card", lambda kernel, key, device: (1, 132))
+    monkeypatch.setattr(torch, "zeros", no_fill)
+    monkeypatch.setattr(torch, "full", no_fill)
+    monkeypatch.setattr(torch.Tensor, "fill_", no_fill)
+    monkeypatch.setattr(torch.Tensor, "zero_", no_fill)
+    cls, planes = launch_dense_kernel(vol.data, mips, params)
+    assert tuple(planes.shape) == (RES // 8, RES // 8, 16, 128)
+    assert seen["planes_ptr"] == planes.data_ptr()
+    assert seen["grid"] == min(132, (RES // 8) ** 2)
+    assert cls.shape == ((RES // 8) ** 2,)

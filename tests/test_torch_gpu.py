@@ -8,7 +8,8 @@ where no CUDA device is present. Run them on the card with
 Inputs come from the port's own synthetic module (no JAX). The library
 builds with --fmad=false, so kernel and plain version run the same
 float32 operations; they differ only in summation order. Bounds: K1
-2e-5; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
+bit-identical (each pixel sums its taps in the plain version's order), at
+odd sizes and every radius too; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
 reference's bounds for its fused level), and two runs of K3 on the same
 inputs bit-identical (no float atomics); K4 weights identical, the tsdf
 within one quantization step (packed) or 1e-6 (float32) on >= 99.9% of
@@ -23,7 +24,8 @@ both layouts; K2 within 2e-5 (the reference's
 bound; the same scalar operations, so 0 is expected), and on degenerate
 systems the pose exactly unchanged; K7 and K8 bit-identical, K8's chunk
 classes too (the fit sums in float64 and rounds once; K8's bilinear
-repeats its plain version's operation order).
+repeats its plain version's operation order), K8 at R = 128, 256 and 512,
+on SKIP and FREE columns and with a surface on a chunk boundary.
 """
 
 import numpy as np
@@ -46,7 +48,7 @@ from housescan_tpu_torch.ops.icp_cuda import (
     icp_level_plain,
     icp_level_state,
 )
-from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda
+from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda, bilateral_filter_plain
 from housescan_tpu_torch.ops.solve6 import solve_twist_compose, solve_twist_plain
 from housescan_tpu_torch.ops.raycast_tiles import (
     _ray_params,
@@ -62,6 +64,8 @@ from housescan_tpu_torch.ops.planes_cuda import (
 )
 from housescan_tpu_torch.ops.raycast_planes import raycast_pallas
 from housescan_tpu_torch.ops.tsdf_cuda import (
+    CLS_FREE,
+    CLS_SKIP,
     dense_inputs,
     dense_integrate_plain,
     launch_dense_kernel,
@@ -114,8 +118,50 @@ def test_bilateral_kernel_matches_plain(cuda):
     got = bilateral_filter_cuda(d)
     want = bilateral_filter(d)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got, want)
     assert bool((got[100:140, 200:260] == 0).all())
+
+
+def _bilateral_frame(device, h, w):
+    """An (h, w) crop of a VGA room frame with a hole and a hard edge (no
+    tile of the kernel divides 161 x 121 or 7 x 5)."""
+    _, frames = _stream(VGA, 1, 0.0, device)
+    d = frames[0][:h, :w].clone()
+    d[h // 3 : h // 3 + max(1, h // 8), w // 4 : w // 4 + max(1, w // 6)] = 0.0
+    d[: max(1, h // 5)] *= 2.0
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [0, 1, 3, 7])
+@pytest.mark.parametrize("hw", [(480, 640), (120, 160), (121, 161), (5, 7)],
+                         ids=["640x480", "160x120", "161x121", "7x5"])
+def test_bilateral_kernel_bit_identical_at_sizes_and_radii(cuda, hw, radius):
+    """K1 against its plain version bit for bit, at tile-aligned and odd
+    sizes and at radius 0, 1, 3 (the default) and 7 (the largest)."""
+    d = _bilateral_frame(cuda, *hw)
+    before = cuda_lib.launch_counts["bilateral"]
+    got = bilateral_filter_cuda(d, radius)
+    want = bilateral_filter_plain(d, radius)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["bilateral"] == before + 1
+    assert torch.equal(got, want)
+    assert bool((got[d == 0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["all_invalid", "one_valid"])
+def test_bilateral_kernel_bit_identical_on_sparse_frames(cuda, frame):
+    """An all-invalid frame filters to zeros; one valid pixel keeps its depth."""
+    d = torch.zeros(480, 640, device=cuda)
+    if frame == "one_valid":
+        d[200, 300] = 1.75
+    for radius in (0, 3, 7):
+        got = bilateral_filter_cuda(d, radius)
+        want = bilateral_filter_plain(d, radius)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, d)
 
 
 @pytest.mark.gpu
@@ -672,6 +718,67 @@ def test_dense_kernel_matches_plain(cuda):
     assert torch.equal(kc, qc)
     assert torch.equal(kd, qd)
     assert torch.equal(kp, qp)
+
+
+def _dense_matches_plain(vol, depth, pose, intr):
+    """One K8 launch and its plain version on copies of ``vol``: classes,
+    volume and planes bit-identical; lanes past R/8 zero. Returns (classes,
+    planes)."""
+    mips, params = dense_inputs(vol, depth, pose, intr)
+    before = cuda_lib.launch_counts["tsdf_dense"]
+    kd = vol.data.clone()
+    kc, kp = launch_dense_kernel(kd, mips, params)
+    qd = vol.data.clone()
+    qc, qp = dense_integrate_plain(qd, mips, params)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tsdf_dense"] == before + 1
+    assert torch.equal(kc, qc)
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+    assert not bool(kp[:, :, :, vol.dims[2] // 8 :].any())
+    vol.data.copy_(kd)
+    return kc, kp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [128, 256, 512])
+def test_dense_kernel_bit_identical_at_each_resolution(cuda, res):
+    """K8 on the VGA orbit's frames 0 and 1 from a fresh float32 volume of
+    R = 128, 256 and 512 (1, 2 and 4 chunks a column)."""
+    poses, frames = _stream(VGA, 2, 0.04, cuda)
+    vol = tsdf_new(res, 3.0, 0.03, dtype=torch.float32, device=cuda)
+    for d, p in zip(frames, poses):
+        kc, _ = _dense_matches_plain(vol, d, torch.from_numpy(p).to(cuda), VGA)
+    assert int((kc != CLS_SKIP).sum()) > 20 and float(vol.data[1].max()) == 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [128, 256, 512])
+@pytest.mark.parametrize("wall", ["boundary", "free"])
+def test_dense_kernel_bit_identical_on_wall_frames(cuda, res, wall):
+    """A flat wall facing the camera (constant depth), the camera 3 m before
+    the cube's centre looking along +z. "boundary": the wall at the cube's
+    centre, between voxels R/2 - 1 and R/2, a chunk boundary at R = 256
+    and 512: its planes lie in sub-block R/16 - 1 only, from the +z
+    crossing into the next chunk (the halo, after that chunk's integrate);
+    columns out of view stay SKIP. "free": the wall beyond the cube, so
+    every column in view is FREE. Each frame fused twice."""
+    pose = torch.eye(4, device=cuda)
+    pose[3, 2] = -3.0
+    depth = torch.full((120, 160), 3.0 if wall == "boundary" else 4.6, device=cuda)
+    vol = tsdf_new(res, 3.0, 0.06, dtype=torch.float32, device=cuda)
+    nzc = res // 128
+    for _ in range(2):
+        kc, kp = _dense_matches_plain(vol, depth, pose, QQVGA)
+    cols = kc.reshape(-1, nzc)
+    valid = (kp[:, :, 4, : res // 8] > 0.5).sum(dim=(0, 1))
+    if wall == "boundary":
+        assert int(valid[res // 16 - 1]) > 100 and int(valid.sum()) == int(valid[res // 16 - 1])
+        if res > 128:
+            assert bool((cols == CLS_SKIP).all(dim=1).any())
+    else:
+        assert int((cols == CLS_FREE).all(dim=1).sum()) > 100
+        assert int(valid.sum()) == 0
 
 
 @pytest.mark.gpu

@@ -2,7 +2,8 @@
 reference.
 
 K1 (bilateral filter) against ``bilateral_filter_pallas`` in interpret
-mode at the reference's own bound (atol 2e-5). The pyramid against the
+mode at the reference's own bound (atol 2e-5), at the 160x120 test frame
+and at sizes no tile divides, radii 0, 1, 3, 5 and 7. The pyramid against the
 reference's CPU path: depths within the same 2e-5; live maps within
 1e-4, because a normal is a cross product of neighbour differences: a
 last-bit depth difference (2.4e-7 at 2 m) over the 2-pixel stencil span
@@ -49,14 +50,35 @@ def _depth(salted=True):
     return d
 
 
-@pytest.mark.parametrize("salted", [True, False])
-def test_bilateral_matches_pallas(salted):
-    d = _depth(salted)
-    want = np.asarray(bilateral_filter_pallas(jnp.asarray(d), interpret=True))
-    got = bilateral_filter_cuda(torch.from_numpy(d)).numpy()
+def _odd_depth(h, w):
+    """An (h, w) crop of the salted frame, which no (8, 128) tile divides:
+    the reference pads it with zeros (invalid), the port filters it as it
+    is."""
+    d = np.zeros((max(h, 120), max(w, 160)), np.float32)
+    d[:120, :160] = _depth()
+    return np.ascontiguousarray(d[:h, :w])
+
+
+@pytest.mark.parametrize(
+    "salted,hw,radius",
+    [
+        pytest.param(True, (120, 160), 3, id="True"),
+        pytest.param(False, (120, 160), 3, id="False"),
+        pytest.param(True, (121, 161), 0, id="161x121-r0"),
+        pytest.param(True, (121, 161), 1, id="161x121-r1"),
+        pytest.param(True, (57, 83), 5, id="83x57-r5"),
+        pytest.param(True, (5, 7), 7, id="7x5-r7"),
+    ],
+)
+def test_bilateral_matches_pallas(salted, hw, radius):
+    d = _depth(salted) if hw == (120, 160) else _odd_depth(*hw)
+    want = np.asarray(bilateral_filter_pallas(jnp.asarray(d), radius=radius, interpret=True))
+    got = bilateral_filter_cuda(torch.from_numpy(d), radius).numpy()
+    assert got.shape == want.shape == hw
     np.testing.assert_allclose(got, want, atol=2e-5)
-    if salted:
+    if salted and hw == (120, 160):
         assert (got[40:50, 60:70] == 0).all()
+    assert (got[d == 0] == 0).all()
 
 
 def test_bilateral_wrapper_uses_plain_on_cpu():
