@@ -31,9 +31,11 @@ float32 volume. Phases, each fatal on failure:
      size's candidates a tile (mean, max, tiles with none, full tiles);
      then K3's three level calls of a step, each run twice (bit-identical
      required), held against its plain version (phase 4's bounds) and
-     timed (CUDA events, and its device kernels by the profiler), and K4
+     timed (CUDA events, and its device kernels by the profiler), K4
      over the main list's every row with the count set to 0 (an empty
-     list) and with its real count;
+     list) and with its real count, and K7 on the warm state's packed
+     volume (bit-identical; its device time and its bound counted from
+     the volume's observed voxels, as in phase 11);
   5. integrate the orbit at its poses with and without the free split:
      the volumes and planes must be bit-identical;
   6. run the fusion orbit again from a fresh state, timed on the host
@@ -61,7 +63,9 @@ float32 volume. Phases, each fatal on failure:
   9. xla-480: the orbit on the XLA path, a warm pass, then K2 (the
      standalone solve) against its plain version on the card on the
      (A, b, pose) of real iterations of that orbit and on degenerate
-     systems, one more step that must not make the host wait on the card,
+     systems (bit-identical), its device time a call beside an empty
+     one-thread kernel's (the latency floor), one more step that must
+     not make the host wait on the card,
      then a timed pass with launch counts: pose error <= 5 mm, 20/20
      tracked, model-map coverage >= 0.5, K1 and K2 launched, K3-K8 not, no
      plain version; print ms/frame, fps and peak memory;
@@ -74,12 +78,16 @@ float32 volume. Phases, each fatal on failure:
      (K7, K6) renders the last and the first pose; K8, K7 and K6 launched,
      no other kernel and no plain version; the reference's depth-quality
      gates at each pose (coverage > 0.55, median |depth - true depth| <
-     0.5 mm on jointly valid pixels, > 10 mm on fewer than 4%); then K8
-     against its plain version (frame 1 on a volume carried from frame 0:
-     volume, planes and chunk classes), K7 against its plain version on
-     the fused volume (K8 bit-identical on classes, weights, tsdf and
-     planes; its chunk classes, its time by CUDA events, its device time
-     by launch by the profiler and its bandwidth against the bound
+     0.5 mm on jointly valid pixels, > 10 mm on fewer than 4%); then K7
+     against its plain version on the fused volume (bit-identical; its
+     observed voxels and 32-byte z-segments, its device time by launch
+     and its bound counted from the data: every weight, the tsdf of the
+     observed voxels, the planes, beside the loose one of earlier
+     readings) and the render's time (one ``raycast_pallas`` call), K8
+     against its plain version (frame 1 on a volume carried
+     from frame 0: bit-identical on classes, weights, tsdf and planes;
+     its chunk classes, its time by CUDA events, its device time by
+     launch by the profiler and its bandwidth against the bound
      printed), and K8 against K4 from fresh volumes: the twin of
      the reference's test (128^3, 160x120: weights agree on >= 99.9% of
      voxels, the tsdf's 99th percentile |diff| < 1e-5 on jointly observed
@@ -102,14 +110,16 @@ float32 volume. Phases, each fatal on failure:
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
-(K1, K3-K6) with K1's device time and estimated issue floor, K8 on dense-512's
-compare input and K7 on the orbit fused by K8 (phase 11's comparisons
-and readings, phase 12's times), every kernel's resident blocks an SM and phase 13's profile of the
-kernel path on both layouts, and prints no result line. It calls
-nothing that the package of the commit before K1's and K8's redesign
-lacks, so copied into a checkout of that commit it reads the same calls
-there: the before and after of a redesign, in turns within one run on
-the card.
+(K1, K3-K6) and of K7 on box-512's packed volume, with K1's device time
+and estimated issue floor, K8 on dense-512's compare input and K7 on the
+orbit fused by K8 (phase 11's comparisons and readings, the render's
+time, phase 12's times), every kernel's resident blocks an SM, phase 13's profile of the
+kernel path on both layouts, then K2 on the systems of box-512's warm
+state (phase 9's comparison and readings, timed), and prints no result
+line. It calls nothing that the package of the commit before K7's and
+K2's redesign lacks, so copied into a checkout of that commit it reads
+the same calls there: the before and after of a redesign, in turns
+within one run on the card.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
@@ -153,6 +163,7 @@ TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
 LAYOUTS = {torch.int32: "packed", torch.float32: "float32"}
 SMALL_CAM = (160, 120, 131.25, 131.25, 79.5, 59.5)  # the reference tests' 160x120 camera
 SMALL_K6 = "raycast_tiles@160x120"  # K6 at SMALL_CAM: 30 tiles, 384 candidates a tile
+PACKED_K7 = f"planes_extract@box-{RES}"  # K7 on box-512's packed volume after its warm orbit
 
 
 def chunk_bytes(data) -> int:
@@ -931,30 +942,44 @@ def k2_systems(st, depth, intr):
 
 
 def compare_k2(systems):
-    """K2 against its plain version on the card on each system: max abs
-    error over the 16 pose entries and the step norm (bound 2e-5, the
-    reference's; 0 expected, as K3's inlined solve gave); a degenerate
-    system must keep its pose exactly. Returns (max abs err, timing
-    calls, bound)."""
+    """K2 against its plain version on the card on each system:
+    bit-identical required on the 16 pose entries and the step norm (the
+    same float32 operations in the same order, --fmad=false); a
+    degenerate system must keep its pose exactly. Returns (max abs err,
+    timing calls, bound)."""
     from housescan_tpu_torch.ops.solve6 import solve_twist_compose, solve_twist_plain
 
-    err = 0.0
     n_corr_sys = len(systems) - 3
     for i, (p, a, b, damping) in enumerate(systems):
         kp, kn = solve_twist_compose(p, a, b, damping=damping)
         qp, qn = solve_twist_plain(p, a, b, damping=damping)
         torch.cuda.synchronize()
-        err = max(err, float((kp - qp).abs().max()), abs(float(kn) - float(qn)))
+        if not (torch.equal(kp, qp) and torch.equal(kn, qn)):
+            fail(f"K2 differs from its plain version on system {i}: pose by "
+                 f"{float((kp - qp).abs().max())}, step norm {float(kn)} vs {float(qn)}")
         if i >= n_corr_sys and not (torch.equal(kp, p) and float(kn) <= 1e-9):
             fail(f"K2 moved the pose on degenerate system {i - n_corr_sys}")
-    if err > 2e-5:
-        fail(f"K2 differs from its plain version by {err}")
     p, a, b, damping = systems[n_corr_sys - 1]  # the finest level's last system
     calls = (lambda: solve_twist_compose(p, a, b, damping=damping),
              lambda: solve_twist_plain(p, a, b, damping=damping))
     # 58 floats in, 17 out; ~700 float ops (the Cholesky, two solves, the
     # matvec, Rodrigues and the 4x4 compose)
-    return err, calls, bound((58 + 17) * 4, 700)
+    return 0.0, calls, bound((58 + 17) * 4, 700)
+
+
+def k2_readings(calls, card, reps=200):
+    """K2's device time a launch by the profiler (every device kernel a
+    call launches), beside its latency floor: an empty one-thread kernel
+    (PyTorch's spin kernel with 0 cycles, ``torch.cuda._sleep(0)``)
+    launched on the same stream and read the same way. Returns (K2's
+    device us a call, the floor's)."""
+    k2 = kernel_device_us(calls[0], reps)
+    empty = kernel_device_us(lambda: torch.cuda._sleep(0), reps)
+    k2_us, floor_us = sum(v[0] for v in k2.values()), sum(v[0] for v in empty.values())
+    print(f"# K2 device time {k2_us:.3f} us a call in "
+          f"{', '.join(f'{k[:60]} {v[0]:.3f} us x{v[1]:.0f}' for k, v in k2.items())}; latency "
+          f"floor (an empty one-thread kernel) {floor_us:.3f} us [{card}]", flush=True)
+    return k2_us, floor_us
 
 
 def run_xla(intr, poses, frames, device, card):
@@ -967,7 +992,8 @@ def run_xla(intr, poses, frames, device, card):
     systems = k2_systems(st, frames[N_FRAMES], intr)
     err, calls, k2_bound = compare_k2(systems)
     print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from the warm xla-{XLA_RES} "
-          f"pass's last frame, 3 degenerate), max abs err {err}", flush=True)
+          f"pass's last frame, 3 degenerate), bit-identical", flush=True)
+    k2_readings(calls, card)
     from housescan_tpu_torch.kinfu.pipeline import kinfu_step
 
     _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr, use_pallas=False))
@@ -1089,30 +1115,81 @@ def kernel_device_us(fn, reps):
     return device_us(prof, reps)
 
 
-def compare_extract(vol, tag):
-    """K7 against its plain version on a fused volume: bit-identical
-    expected (both sum the moments in float64 and round once); bound 1e-5
-    on every field, valid flags identical. Returns (max abs err, timing
-    calls, bound)."""
+def compare_extract(vol, tag, card, reps=20):
+    """K7 against its plain version on a volume of either layout:
+    bit-identical required (both sum the moments in float64 and round
+    once, --fmad=false). Prints the observed voxels, the kernel's device
+    time by launch (the profiler) and its bound counted from the volume's
+    data beside the loose one of earlier readings. Returns (max abs err,
+    timing calls, bound)."""
     from housescan_tpu_torch.ops.planes_cuda import (
         _extract_params, extract_planes_plain, launch_extract_kernel,
     )
 
-    params7 = _extract_params(vol, 6.0, RES // 8)
+    nx, ny, nz = vol.dims
+    params7 = _extract_params(vol, 6.0, nx // 8)
     k7 = launch_extract_kernel(vol.data, params7)
     q7 = extract_planes_plain(vol.data, params7)
     torch.cuda.synchronize()
     err7 = float((k7 - q7).abs().max())
     n_valid = int((q7[:, :, :, 4] > 0.5).sum())
-    if err7 > 1e-5 or not torch.equal(k7[:, :, :, 4], q7[:, :, :, 4]) or n_valid < 1000:
-        fail(f"K7 differs from its plain version by {err7} ({n_valid} valid sub-blocks)")
-    print(f"# K7 compare (the fused {tag} volume): {n_valid} valid sub-blocks, max abs err "
-          f"{err7}", flush=True)
+    if not torch.equal(k7, q7) or n_valid < 1000:
+        fail(f"K7 ({tag}) differs from its plain version by {err7} ({n_valid} valid sub-blocks)")
+    t, w = _tw(vol.data)
+    obs = w > 0
+    observed = int(obs.sum())
+    # 32-byte z-segments (a sub-block's 8 voxels of one (x, y) row) holding
+    # an observed voxel: the tsdf sectors a weight-first read must fetch
+    segments = int(obs.reshape(nx, ny, nz // 8, 8).any(-1).sum())
+    grid = (nx // 8, 8, ny // 8, 8)
+    n_chunks = int(obs.reshape(*grid, nz // 128, 128).any(5).any(3).any(1).sum())
+    sub_obs = obs.reshape(*grid, nz // 8, 8).any(5).any(3).any(1)
+    # sub-blocks that can have a moment term: an observed voxel below 0.99
+    # in the sub-block or in the next one's first slice within the chunk
+    low = obs & (t < 0.99)
+    del t, w, obs
+    cand = low.reshape(*grid, nz // 8, 8).any(5).any(3).any(1)
+    nxt = low[:, :, 8::8].reshape(*grid, nz // 8 - 1).any(3).any(1)
+    del low
+    keep = (torch.arange(1, nz // 8, device=cand.device) % 16) != 0
+    cand[:, :, :-1] |= nxt & keep
+    n_sub, n_cand = int(sub_obs.sum()), int(cand.sum())
+    del sub_obs, cand, nxt
+    voxels = nx * ny * nz
+    out_bytes = k7.numel() * 4
+    # the least bytes: float32, every weight and the tsdf of the observed
+    # voxels (an unobserved voxel reads no neighbour and adds no term);
+    # packed, every cell (both values in one word); the planes written. ~30
+    # float ops an observed voxel (crossing tests, moment terms)
+    packed = vol.data.dim() == 3
+    need = 4 * voxels + (0 if packed else 4 * observed) + out_bytes
+    tight = bound(need, 30 * observed)
+    loose = bound((4 if packed else 8) * voxels + out_bytes, 30 * voxels)
     calls = (lambda: launch_extract_kernel(vol.data, params7),
              lambda: extract_planes_plain(vol.data, params7))
-    # the volume's voxels read once (8 bytes), the planes written; ~30
-    # float ops a voxel (crossing tests, moment terms)
-    return err7, calls, bound(8 * RES ** 3 + k7.numel() * 4, 30 * RES ** 3)
+    dev = kernel_device_us(calls[0], reps)
+    print(f"# K7 compare ({tag} volume {tuple(vol.data.shape)}): {n_valid} valid sub-blocks, "
+          f"bit-identical; {observed} observed voxels ({observed / voxels * 100:.3f}%) in "
+          f"{segments} 32-byte z-segments, {n_sub} sub-blocks ({n_cand} with a voxel below "
+          f"0.99 that a term needs) and {n_chunks} chunks of {voxels // CHUNK_VOXELS}; device "
+          f"by launch: "
+          f"{', '.join(f'{k[:50]} {v[0]:.1f} us x{v[1]:.0f}' for k, v in dev.items())}; bound "
+          f"counted from the data {need / 1e6:.1f} MB, {tight[0]:.4f} ms ({tight[1]}); the "
+          f"loose one of earlier readings (every voxel read) {loose[0]:.4f} ms [{card}]",
+          flush=True)
+    return err7, calls, tight
+
+
+def render_ms(vol, pose, intr, card, reps=10):
+    """dense-512's render: one ``raycast_pallas`` call (K7, the tile
+    candidates, K6, the seam and skirt masks) on the fused volume, by CUDA
+    events. Returns ms a call."""
+    from housescan_tpu_torch.ops.raycast_planes import raycast_pallas
+
+    ms = cuda_ms(lambda: raycast_pallas(vol, pose, intr), reps)
+    print(f"# dense-{RES} render (raycast_pallas: K7, candidates, K6, masks): {ms:.4f} ms a "
+          f"call (CUDA events) [{card}]", flush=True)
+    return ms
 
 
 def compare_dense(intr, frames, pose_t, device, card, reps=10):
@@ -1235,7 +1312,8 @@ def run_dense(intr, poses, frames, device, card):
         if not bool(torch.isfinite(m).all()) or cover <= 0.55 or med >= 0.0005 or tail >= 0.04:
             fail(f"{tag} depth quality at pose {k}: coverage {cover}, median {med}, tail {tail}")
 
-    err7, k7_calls, k7_bound = compare_extract(vol, tag)
+    err7, k7_calls, k7_bound = compare_extract(vol, tag, card)
+    render_ms(vol, pose_t[N_FRAMES], intr, card)
     del maps
 
     err8, k8_calls, k8_bound = compare_dense(intr, frames, pose_t, device, card)
@@ -1281,7 +1359,7 @@ def run_dense(intr, poses, frames, device, card):
 # CUDA-event calls a timing (kernel, plain version)
 REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
         "tsdf_free": (20, 1), "raycast_tiles": (50, 2), SMALL_K6: (50, 2), "solve6": (200, 3),
-        "planes_extract": (20, 1), "tsdf_dense": (10, 1)}
+        "planes_extract": (20, 1), PACKED_K7: (20, 1), "tsdf_dense": (10, 1)}
 
 
 def warm_states(intr, poses, frames, device, dtype):
@@ -1297,16 +1375,19 @@ def warm_states(intr, poses, frames, device, dtype):
 
 def box_kernels(intr, poses, frames, device, card):
     """Phase 4 on the packed volume: each main-path kernel against its
-    plain version, K3's level calls and K4 on an empty list. Returns
-    (errors, timing calls, bounds, list sizes, warm pass seconds)."""
+    plain version, K7 on the warm state's volume, K3's level calls and K4
+    on an empty list. Returns (errors, timing calls, bounds, list sizes,
+    warm pass seconds, the warm state)."""
     pose1 = torch.from_numpy(poses[1]).to(device)
     st, st0, warm_s = warm_states(intr, poses, frames, device, torch.int32)
     errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1,
                                                  card)
+    errs[PACKED_K7], calls[PACKED_K7], bounds[PACKED_K7] = compare_extract(
+        st.volume, f"box-{RES} packed", card)
     print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
     icp_levels(st, frames[N_FRAMES], intr, card)
     stream_empty_list(st, frames[N_FRAMES], intr, card)
-    return errs, calls, bounds, sizes, warm_s
+    return errs, calls, bounds, sizes, warm_s, st
 
 
 def f32_kernels(intr, poses, frames, device, card):
@@ -1356,7 +1437,7 @@ def probe(intr, poses, frames, device, card):
     device time by launch, bandwidth) and K7 on the orbit fused by K8,
     both then timed as in phase 12, every kernel's resident blocks an SM,
     and phase 13's device time a step on both layouts."""
-    errs, calls, bounds, _, _ = box_kernels(intr, poses, frames, device, card)
+    errs, calls, bounds, _, _, st_box = box_kernels(intr, poses, frames, device, card)
     f32, st, _ = f32_kernels(intr, poses, frames, device, card)
     del st
     torch.cuda.empty_cache()
@@ -1381,13 +1462,21 @@ def probe(intr, poses, frames, device, card):
     print(f"# dense-{RES}: {N_FRAMES + 1} frames fused by K8 in {fuse_s:.4f} s = "
           f"{fuse_s / (N_FRAMES + 1) * 1000:.3f} ms/frame (host clock, K8 warm) [{card}]",
           flush=True)
-    _, dense["planes_extract"], k7_bound = compare_extract(vol, f"dense-{RES}")
+    _, dense["planes_extract"], k7_bound = compare_extract(vol, f"dense-{RES}", card)
+    render_ms(vol, pose_t[N_FRAMES], intr, card)
     time_kernels(list(dense), dense, {"tsdf_dense": k8_bound, "planes_extract": k7_bound}, card)
     del dense, vol
     torch.cuda.empty_cache()
     occupancy_report(intr, card)
     for tag, kw, name, before in PROFILES[:2]:
         report_profile(tag, intr, poses, frames, device, card, None, kw, name, before)
+    # K2 on the systems of box-512's warm state (the probe runs no xla-480)
+    systems = k2_systems(st_box, frames[N_FRAMES], intr)
+    _, k2_calls, k2_bound = compare_k2(systems)
+    print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from box-{RES}'s warm "
+          f"state, 3 degenerate), bit-identical", flush=True)
+    k2_readings(k2_calls, card)
+    time_kernels(["solve6"], {"solve6": k2_calls}, {"solve6": k2_bound}, card)
 
 
 def main() -> None:
@@ -1415,7 +1504,8 @@ def main() -> None:
         return
 
     # 4. box-512 (packed): warm orbit, then each kernel against its plain version
-    errs, calls, bounds, sizes, warm_s = box_kernels(intr, poses, frames, device, card)
+    errs, calls, bounds, sizes, warm_s, st = box_kernels(intr, poses, frames, device, card)
+    del st
 
     # 5. split and unsplit integrates of the orbit
     same, observed = split_orbit_identical(intr, poses, frames, device, torch.int32)
@@ -1471,7 +1561,8 @@ def main() -> None:
     path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"],
                          planes_extract=dense["launches"]["planes_extract"],
                          tsdf_dense=dense["launches"]["tsdf_dense"])
-    times = time_kernels(list(KERNELS) + [SMALL_K6], calls, bounds, card, path_launches)
+    times = time_kernels(list(KERNELS) + [SMALL_K6, PACKED_K7], calls, bounds, card,
+                         path_launches)
     k1_readings(intr, calls, card)
     rows = []
     for name, (src, replaces) in KERNELS.items():

@@ -8,9 +8,9 @@
 //
 // A fit reads its voxels through an accessor tw(ix, iy, z, t, w); the
 // chunk kernels keep the chunk in shared memory, as floats (HsSmemChunk,
-// K7; K8's own accessor reads the +z halo from the next chunk's buffer,
-// where the crossings run on along its columns) or in the volume's own
-// cells (HsStagedChunk, K4). Where the sub-blocks lie and what they are
+// K7's float32 planes; K8's own accessor reads the +z halo from the next
+// chunk's buffer, where the crossings run on along its columns) or in the
+// volume's own cells (HsStagedChunk, K4 and K7's packed one). Where the sub-blocks lie and what they are
 // called come in as HsFitGeom, so one fit serves chunk ids (K4, K7) and
 // column ids (K8). The eigen analysis splits into the shape (from the
 // moments alone) and the fields (where the sub-block lies), so K8 computes
@@ -23,8 +23,8 @@
 #define HS_NSUB 16
 #define HS_NMOM 19
 
-// A chunk of 8 x 8 x zs voxels in shared memory, t[(ix * 8 + iy) * zs + z]
-// (zs = 128, or 129 with a halo slice).
+// A chunk's tsdf and weight planes in shared memory as floats,
+// t[(ix * 8 + iy) * zs + z] (zs: a staged z-row's stride).
 struct HsSmemChunk {
   const float* t;
   const float* w;

@@ -1,16 +1,24 @@
 // Damped 6x6 solve + twist exponential + pose compose: the math of
-// housescan_tpu/ops/solve6_pallas.py (_solve_twist_math, K2's body) as a
-// device function that K3 (icp.cu) inlines and K2 (solve6.cu) launches.
-// Operation for operation the plain version housescan_tpu_torch/ops/solve6.py.
+// housescan_tpu/ops/solve6_pallas.py (_solve_twist_math, K2's body) as
+// device functions that K3 (icp.cu: hs_solve_twist, serial) and K2
+// (solve6.cu: one warp) build on. Operation for operation the plain version
+// housescan_tpu_torch/ops/solve6.py; the pieces take the two choices that
+// differ between the kernels as parameters (how a solve divides by a
+// diagonal entry of L, and how the sine's last Taylor term divides), so
+// each kernel's arithmetic is fixed by its call.
 #pragma once
 
 #include "common.cuh"
 
+// kRecip: the last term multiplies by the float reciprocal of 362880, as
+// PyTorch's CUDA division of a tensor by a Python scalar does (K2's plain
+// version runs on the card); else it divides (K3, as before).
+template <bool kRecip>
 __device__ __forceinline__ float hs_sin_taylor(float t) {
   const float t2 = t * t;
+  const float last = kRecip ? t2 * (1.0f / 362880.0f) : t2 / 362880.0f;
   return t * (1.0f + t2 * ((float)(-1.0 / 6) +
-                           t2 * ((float)(1.0 / 120) +
-                                 t2 * ((float)(-1.0 / 5040) + t2 / 362880.0f))));
+                           t2 * ((float)(1.0 / 120) + t2 * ((float)(-1.0 / 5040) + last))));
 }
 
 __device__ __forceinline__ float hs_cos_taylor(float t) {
@@ -19,18 +27,19 @@ __device__ __forceinline__ float hs_cos_taylor(float t) {
                                     t2 * ((float)(-1.0 / 720) + t2 * (float)(1.0 / 40320))));
 }
 
-// a: 36 (row-major A), b: 6, pose: 16 (row-major, row-vector convention).
-// out: 16 new pose entries + the post-clamp step norm (0 when the solve
-// failed and the pose was kept).
-__device__ inline void hs_solve_twist(const float* a, const float* b, const float* pose,
-                               float damping, float max_step, float* out) {
+// lam = max(damping, null threshold) * max(A00, |A11|, ..., |A55|) (at
+// least 1e-12).
+__device__ __forceinline__ float hs_solve_lambda(const float* a, float damping) {
   const float null_threshold = 1e-2f;
   float scale = a[0];
   for (int i = 1; i < 6; ++i) scale = fmaxf(scale, fabsf(a[i * 6 + i]));
   scale = hs_clamp_min(scale, 1e-12f);
-  const float lam = hs_clamp_min(damping, null_threshold) * scale;
+  return hs_clamp_min(damping, null_threshold) * scale;
+}
 
-  float L[6][6];
+// The lower Cholesky factor L of A + lam I, row by row; returns whether
+// every pivot was > 0.
+__device__ __forceinline__ bool hs_cholesky6(const float* a, float lam, float (*L)[6]) {
   bool ok = true;
   for (int i = 0; i < 6; ++i) {
     for (int j = 0; j <= i; ++j) {
@@ -44,36 +53,43 @@ __device__ inline void hs_solve_twist(const float* a, const float* b, const floa
       }
     }
   }
+  return ok;
+}
 
-  float z[6], az[6], x[6], y[6];
-  // z = (A + lam I)^-1 b
+// x = (L L^T)^-1 rhs: forward then back substitution, each row's sum in
+// ascending k, then div(s, L[i][i], i) = s / L[i][i].
+template <class Div>
+__device__ __forceinline__ void hs_chol_solve6(float (*L)[6], const float* rhs, float* x,
+                                               const Div& div) {
+  float y[6];
   for (int i = 0; i < 6; ++i) {
-    float s = b[i];
+    float s = rhs[i];
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * z[k];
-    z[i] = s / L[i][i];
-  }
-  for (int i = 0; i < 6; ++i) {
-    float s = a[i * 6] * z[0];
-    for (int k = 1; k < 6; ++k) s = s + a[i * 6 + k] * z[k];
-    az[i] = s;
-  }
-  // x = (A + lam I)^-1 A z
-  for (int i = 0; i < 6; ++i) {
-    float s = az[i];
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = div(s, L[i][i], i);
   }
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
     for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = div(s, L[i][i], i);
   }
+}
 
+// out = A v, each row summed k = 0..5 in order.
+__device__ __forceinline__ void hs_matvec6(const float* a, const float* v, float* out) {
+  for (int i = 0; i < 6; ++i) {
+    float s = a[i * 6] * v[0];
+    for (int k = 1; k < 6; ++k) s = s + a[i * 6 + k] * v[k];
+    out[i] = s;
+  }
+}
+
+// From the filtered step x (6) and the solve's ok: the non-finite and >1e3
+// guards, the max-step clamp, Rodrigues, then pose @ increment into
+// out[0..15] (the pose kept where the solve failed) and the post-clamp
+// step norm into out[16] (0 then).
+template <bool kRecip>
+__device__ __forceinline__ void hs_twist_compose(float* x, bool ok, const float* pose,
+                                                 float max_step, float* out) {
   for (int i = 0; i < 6; ++i) ok = ok && isfinite(x[i]);
   for (int i = 0; i < 6; ++i) x[i] = ok ? x[i] : 0.0f;
   float nrm2 = x[0] * x[0];
@@ -92,7 +108,7 @@ __device__ inline void hs_solve_twist(const float* a, const float* b, const floa
   const float kx = small ? 0.0f : wx / safe_t;
   const float ky = small ? 0.0f : wy / safe_t;
   const float kz = small ? 0.0f : wz / safe_t;
-  const float s = hs_sin_taylor(theta);
+  const float s = hs_sin_taylor<kRecip>(theta);
   const float c = hs_cos_taylor(theta);
   const float one_c = 1.0f - c;
 
@@ -119,4 +135,24 @@ __device__ inline void hs_solve_twist(const float* a, const float* b, const floa
     }
   }
   out[16] = ok ? nrm * fac : 0.0f;
+}
+
+// A solve's division by L[i][i] as the operator itself.
+struct HsDivPlain {
+  __device__ __forceinline__ float operator()(float s, float d, int) const { return s / d; }
+};
+
+// a: 36 (row-major A), b: 6, pose: 16 (row-major, row-vector convention).
+// out: 16 new pose entries + the post-clamp step norm (0 when the solve
+// failed and the pose was kept). Serial, as K3 inlines it.
+__device__ inline void hs_solve_twist(const float* a, const float* b, const float* pose,
+                                      float damping, float max_step, float* out) {
+  float L[6][6];
+  const bool ok = hs_cholesky6(a, hs_solve_lambda(a, damping), L);
+  float z[6], az[6], x[6];
+  // z = (A + lam I)^-1 b, then x = (A + lam I)^-1 A z
+  hs_chol_solve6(L, b, z, HsDivPlain{});
+  hs_matvec6(a, z, az);
+  hs_chol_solve6(L, az, x, HsDivPlain{});
+  hs_twist_compose<false>(x, ok, pose, max_step, out);
 }

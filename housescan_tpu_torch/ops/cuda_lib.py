@@ -78,8 +78,8 @@ _SIGNATURES = {
     # vol, layout, planes, bitmap, count, bi, bj, bk, grid, nx, ny, nz,
     # params, sat_w, stream
     "hs_tsdf_free": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
-    # vol, layout, planes, nx, ny, nz, params, stream
-    "hs_planes_extract": [_P, _I, _P, _I, _I, _I, _P, _P],
+    # vol, layout, planes, nx, ny, nz, params, next_chunk, grid, stream
+    "hs_planes_extract": [_P, _I, _P, _I, _I, _I, _P, _P, _I, _P],
     # vol, nx, ny, nz, mip0, h0, w0, mip1, h1, w1, mip2, h2, w2, l3, h3, w3,
     # l3min, l3max, l3valid, params, cls, planes, next_col, grid, stream
     "hs_tsdf_dense": [
@@ -89,8 +89,8 @@ _SIGNATURES = {
     ],
     # cand, n_tiles, max_ct, params, out, h, w_pad, stream
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
-    # abp, out, damping, max_step, stream
-    "hs_solve6": [_P, _P, _F, _F, _P],
+    # a, b, pose, out, damping, max_step, stream
+    "hs_solve6": [_P, _P, _P, _P, _F, _F, _P],
 }
 # Each kernel's occupancy query (arg, out): the device kernels it reports,
 # in order, at the launch configuration of its wrapper.

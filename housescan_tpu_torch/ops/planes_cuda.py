@@ -13,13 +13,18 @@ It is off the fusion step: ``raycast_planes.raycast_pallas`` (model maps
 straight from a volume) calls it, and it is the oracle K4's planes are
 held to.
 
-CUDA kernel, ``csrc/planes_extract.cu``: one block of 512 threads per
-chunk loads the chunk's tsdf and weight (either layout, through the
-storage template of ``csrc/common.cuh``) into shared memory, and one warp
-per sub-block runs the device fit of ``csrc/planes.cuh`` that K4 inlines.
-Bound: device-memory bytes, each voxel read once (8 bytes float32, 4
-packed) and each planes tile written once; at 512^3 float32 ~1.1 GB,
-~0.33 ms at 3.35 TB/s.
+CUDA kernel, ``csrc/planes_extract.cu``, weights first: one launch of a
+persistent grid (two 256-thread blocks an SM, chunks claimed from a
+counter) streams each chunk's weight plane (packed: its cells) through a
+ring of shared-memory buffers with bulk copies; a chunk with no observed
+voxel writes its tile from the all-zero moments' shape, and an observed
+one fetches the tsdf of its observed 8-voxel z-segments only, then a
+warp fits each observed sub-block that has a voxel below 0.99 (which
+every moment term needs) with the device fit of ``csrc/planes.cuh`` that
+K4 and K8 inline. Bound: device-memory bytes, every weight read (4
+bytes a voxel; packed: every cell), the tsdf of the observed voxels and
+each planes tile written once: at dense-512 (~2% observed) ~0.17 ms at
+3.35 TB/s; ``chip_smoke.py`` counts it from the volume's data.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ import torch
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, read_tw
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, chunk_plane_fields
-from housescan_tpu_torch.ops.tsdf_stream import CHUNK_Z, PLAIN_BATCH, chunk_cells, planes_shape
+from housescan_tpu_torch.ops.tsdf_stream import (
+    CHUNK_Z, PLAIN_BATCH, _card, _layout_key, chunk_cells, planes_shape, stream_grid,
+)
 
 
 def _extract_params(vol: TsdfVolume, min_count: float, nbx: int) -> torch.Tensor:
@@ -54,16 +61,22 @@ def extract_planes_plain(data: torch.Tensor, params: torch.Tensor) -> torch.Tens
 
 
 def launch_extract_kernel(data: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """The CUDA K7 launch: a new planes tensor of ``data``'s volume."""
+    """The CUDA K7 launch: a new planes tensor of ``data``'s volume (every
+    element written by the kernel, so allocated without a fill)."""
     layout, dims = cuda_lib.volume_layout("planes_extract", data)
     cuda_lib.require_cuda("planes_extract", data, dtype=data.dtype)
     cuda_lib.require_cuda("planes_extract", params)
     if any(d % 8 for d in dims) or dims[2] % CHUNK_Z or params.numel() < 6:
         raise ValueError("planes_extract: bad volume or params shapes")
+    if data.data_ptr() % 16:
+        raise ValueError("planes_extract: the volume must be 16-byte aligned (bulk copies)")
     planes = torch.empty(planes_shape(dims), dtype=torch.float32, device=data.device)
+    n_chunks = (dims[0] // 8) * (dims[1] // 8) * (dims[2] // CHUNK_Z)
+    grid = stream_grid(n_chunks, *_card("planes_extract", _layout_key(layout), data.device.index))
+    next_chunk = torch.empty(1, dtype=torch.int32, device=data.device)  # zeroed by the launch
     rc = cuda_lib.load().hs_planes_extract(
         data.data_ptr(), layout, planes.data_ptr(), *dims, params.data_ptr(),
-        cuda_lib.stream_ptr(),
+        next_chunk.data_ptr(), grid, cuda_lib.stream_ptr(),
     )
     cuda_lib.check(rc, "hs_planes_extract")
     cuda_lib.launch_counts["planes_extract"] += 1

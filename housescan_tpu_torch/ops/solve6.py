@@ -9,20 +9,23 @@ clamp, Rodrigues via Taylor-series sin/cos (exact in float32 for
 |theta| <= 0.3), then pose @ increment.
 
 ``solve_twist_math`` is the plain version, on lists of same-shape
-tensors. Its CUDA twin is the device function ``csrc/solve6.cuh``, which
-repeats the operations below one for one. K3 inlines it into its solve
-block; ``solve_twist_compose`` launches it standalone as K2
-(``csrc/solve6.cu``), once per Gauss-Newton iteration of the XLA ICP loop
-(``kinfu/icp.py``, ``use_pallas=False``). The reference's sharded path
-does not call K2: it solves with ``kinfu/icp._solve_increment``.
+tensors. K3 inlines its serial CUDA twin, the device function
+``csrc/solve6.cuh``, into its solve block; ``solve_twist_compose``
+launches K2 (``csrc/solve6.cu``) standalone, once per Gauss-Newton
+iteration of the XLA ICP loop (``kinfu/icp.py``, ``use_pallas=False``).
+The reference's sharded path does not call K2: it solves with
+``kinfu/icp._solve_increment``.
 
-Why CUDA and one thread: the work is ~700 dependent scalar flops on 58
-inputs (about 300 bytes moved), which takes ~1e-7 ms at the card's
-rates, far below a launch's latency; a scalar thread that reuses the
-device function already bit-exact with the plain version (``--fmad=false``)
-is the simplest kernel that is right. The result stays on the card: the
-host never reads it inside the step. Fusing it into the normal-equations
-reduction, as K3 does, would save the launch.
+Why CUDA and one warp: the work is ~700 chained scalar flops on 58
+inputs (about 300 bytes moved), so latency bounds it, most of it the
+chain's IEEE divisions. One warp reads A, b and the pose where they lie
+(three pointers: no concatenation launch), runs the chain on every lane
+in the plain version's operation order (``--fmad=false``), computes the
+six reciprocals of L's diagonal on six lanes at once and takes each
+triangular-solve division from its reciprocal with two FMA corrections,
+which gives the correctly rounded quotient: bit-identical to
+``solve_twist_plain`` on the card. The result stays on the card: the
+host never reads it inside the step.
 """
 
 from __future__ import annotations
@@ -184,19 +187,19 @@ def solve_twist_compose(pose: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: (pose @ exp(filtered solve of (A, b)), step norm); the norm is
     0 when the solve failed and the pose was kept. CUDA tensors launch
-    the kernel (one block of one thread on the current stream), CPU
-    tensors run ``solve_twist_plain``."""
+    the kernel (one warp on the current stream, reading A, b and the pose
+    in place: a copy is made only of one that is not contiguous float32),
+    CPU tensors run ``solve_twist_plain``."""
     if pose.device.type == "cpu":
         cuda_lib.plain_counts["solve6"] += 1
         return solve_twist_plain(pose, a, b, damping, max_step)
     if a.numel() != 36 or b.numel() != 6 or pose.numel() != 16:
         raise ValueError("solve_twist_compose: needs a (6, 6) A, a (6,) b and a (4, 4) pose")
-    abp = torch.cat([a.reshape(36), b.reshape(6), pose.reshape(16)]).to(torch.float32).contiguous()
+    a, b, pose_in = (t.to(torch.float32).contiguous() for t in (a, b, pose))
     out = torch.empty(17, dtype=torch.float32, device=pose.device)
-    cuda_lib.require_cuda("solve_twist_compose", abp, out)
-    lib = cuda_lib.load()
-    rc = lib.hs_solve6(abp.data_ptr(), out.data_ptr(), float(damping), float(max_step),
-                       cuda_lib.stream_ptr())
+    cuda_lib.require_cuda("solve_twist_compose", a, b, pose_in, out)
+    rc = cuda_lib.load().hs_solve6(a.data_ptr(), b.data_ptr(), pose_in.data_ptr(), out.data_ptr(),
+                                   float(damping), float(max_step), cuda_lib.stream_ptr())
     cuda_lib.check(rc, "hs_solve6")
     cuda_lib.launch_counts["solve6"] += 1
     return out[:16].reshape(4, 4), out[16]

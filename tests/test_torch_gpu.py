@@ -20,9 +20,12 @@ rows with a tile emptied and one filled to every slot (the nearest hit
 and occluder do not depend on the candidates' order); K5 bit-identical
 (the carve has no reduction whose order could differ), also on an empty
 and a thinned list, and so the split and unsplit integrates too, on
-both layouts; K2 within 2e-5 (the reference's
-bound; the same scalar operations, so 0 is expected), and on degenerate
-systems the pose exactly unchanged; K7 and K8 bit-identical, K8's chunk
+both layouts; K2 bit-identical (the same scalar operations in the same
+order), also on degenerate, non-finite and non-contiguous inputs, a step
+above ``max_step`` and theta = 0, and on degenerate systems the pose
+exactly unchanged; K7 and K8 bit-identical, K7 also on an empty volume,
+a fully observed one and one with a single observed sub-block, at a
+non-cubic size, K8's chunk
 classes too (the fit sums in float64 and rounds once; K8's bilinear
 repeats its plain version's operation order), K8 at R = 128, 256 and 512,
 on SKIP and FREE columns and with a surface on a chunk boundary.
@@ -37,7 +40,7 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_run, kinfu_step
 from housescan_tpu_torch.kinfu.preprocess import bilateral_filter, build_pyramid
 from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
-from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+from housescan_tpu_torch.kinfu.tsdf import pack_tw, tsdf_new
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import build_worklist
 from housescan_tpu_torch.kinfu.icp import DAMPINGS
@@ -632,7 +635,7 @@ def test_split_orbit_bit_identical_to_unsplit(cuda, scene, dtype):
 @pytest.mark.gpu
 def test_solve_kernel_matches_plain(cuda):
     """K2 on random SPD systems (the reference test's seed) and on the
-    degenerate ones: against its plain version on the card."""
+    degenerate ones: bit-identical to its plain version on the card."""
     rng = np.random.default_rng(3)
     before = cuda_lib.launch_counts["solve6"]
     for _ in range(10):
@@ -644,8 +647,8 @@ def test_solve_kernel_matches_plain(cuda):
         kp, kn = solve_twist_compose(pose, a, b, damping=3e-4)
         qp, qn = solve_twist_plain(pose, a, b, damping=3e-4)
         torch.cuda.synchronize()
-        assert float((kp - qp).abs().max()) <= 2e-5
-        assert abs(float(kn) - float(qn)) <= 2e-5
+        assert torch.equal(kp, qp)
+        assert torch.equal(kn, qn)
     assert cuda_lib.launch_counts["solve6"] == before + 10
     pose = torch.eye(4, device=cuda)
     pose[3, :3] = torch.tensor([0.3, -0.1, 1.7], device=cuda)
@@ -653,9 +656,82 @@ def test_solve_kernel_matches_plain(cuda):
     for a, b in ((torch.zeros(6, 6), torch.ones(6)), (torch.full((6, 6), nan), torch.ones(6)),
                  (torch.eye(6), torch.full((6,), nan))):
         kp, kn = solve_twist_compose(pose, a.to(cuda), b.to(cuda))
+        qp, qn = solve_twist_plain(pose, a.to(cuda), b.to(cuda))
         torch.cuda.synchronize()
         assert torch.equal(kp, pose)
         assert float(kn) <= 1e-9
+        assert torch.equal(kp, qp) and torch.equal(kn, qn)
+
+
+def _k2_case(case, rng):
+    """(pose, A, b) float32 numpy arrays of one edge case of the solve."""
+    g = rng.normal(size=(50, 6))
+    a = (g.T @ g).astype(np.float32)
+    b = (rng.normal(size=6) * 0.1).astype(np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
+    pose[3, :3] = rng.normal(size=3)
+    if case == "above_max_step":  # the step clamped to max_step, theta up to 0.3
+        b = b * np.float32(200.0)
+    elif case == "theta_zero":  # block-diagonal A, no rotation in b: x[:3] exactly 0
+        a[:3, 3:] = 0.0
+        a[3:, :3] = 0.0
+        b[:3] = 0.0
+    elif case == "inf_a":
+        a[2, 4] = np.inf
+    elif case == "inf_b":
+        b[1] = -np.inf
+    elif case == "indefinite":  # a negative pivot: the pose is kept
+        a = -a
+    return pose, a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["above_max_step", "theta_zero", "inf_a", "inf_b", "indefinite"])
+def test_solve_kernel_bit_identical_on_edge_systems(cuda, case):
+    """K2 on 32 systems of each edge case: every pose entry and the step
+    norm bit-identical to the plain version (the sine's and cosine's
+    Taylor terms over theta up to max_step included)."""
+    rng = np.random.default_rng(11)
+    for _ in range(32):
+        pose, a, b = (torch.from_numpy(x).to(cuda) for x in _k2_case(case, rng))
+        kp, kn = solve_twist_compose(pose, a, b, damping=3e-4)
+        qp, qn = solve_twist_plain(pose, a, b, damping=3e-4)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, qp) and torch.equal(kn, qn)
+        if case == "above_max_step":
+            assert abs(float(kn) - 0.3) < 1e-6
+        if case in ("inf_a", "inf_b", "indefinite"):
+            assert torch.equal(kp, pose) and float(kn) == 0.0
+
+
+@pytest.mark.gpu
+def test_solve_kernel_reads_non_contiguous_inputs(cuda):
+    """K2 on a transposed A, a strided b and a strided pose (each copied
+    to contiguous float32 by the wrapper), and on float64 inputs: the same
+    bits as the plain version on contiguous copies."""
+    rng = np.random.default_rng(5)
+    pose, a, b = (torch.from_numpy(x).to(cuda) for x in _k2_case("above_max_step", rng))
+    a_t = a.t().contiguous().t()  # the same values, column-major
+    b_s = torch.stack([b, torch.zeros_like(b)], dim=1)[:, 0]
+    p_s = torch.stack([pose, torch.zeros_like(pose)], dim=2)[:, :, 0]
+    assert not (a_t.is_contiguous() or b_s.is_contiguous() or p_s.is_contiguous())
+    qp, qn = solve_twist_plain(pose, a, b)
+    for args in ((p_s, a_t, b_s), (pose.double(), a.double(), b.double())):
+        kp, kn = solve_twist_compose(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, qp) and torch.equal(kn, qn)
+
+
+@pytest.mark.gpu
+def test_plain_division_by_a_scalar_is_a_reciprocal_multiply(cuda):
+    """The premise of K2's sine: on the card PyTorch divides a tensor by a
+    Python scalar as a multiply by the scalar's float32 reciprocal, which
+    the kernel repeats for the plain version's ``t2 / 362880``."""
+    t2 = torch.rand(1 << 20, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda) * 0.09
+    inv = torch.tensor(1.0) / torch.tensor(362880.0)
+    assert torch.equal(t2 / 362880, t2 * inv.to(cuda))
 
 
 @pytest.mark.gpu
@@ -696,6 +772,55 @@ def test_extract_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts["planes_extract"] == before + 1
     assert int((q[:, :, :, 4] > 0.5).sum()) > 30
+    assert torch.equal(k, q)
+
+
+def _k7_grids(kind, dims, seed=0):
+    """(tsdf, weight) float32 numpy grids of ``dims``: "empty" (nothing
+    observed), "full" (every voxel observed, a wavy surface crossing every
+    chunk, integer weights 1..15) or "one_subblock" (only sub-block 5 of
+    chunk (1, 2, last) observed, on two rows in three, a tilted plane
+    crossing it)."""
+    rng = np.random.default_rng(seed)
+    t = np.ones(dims, np.float32)
+    w = np.zeros(dims, np.float32)
+    if kind == "full":
+        x, y, z = np.meshgrid(*(np.arange(d, dtype=np.float32) for d in dims), indexing="ij")
+        t = np.clip(1.5 * np.sin(0.21 * x + 0.13 * y + 0.35 * z) +
+                    rng.normal(0.0, 0.05, dims), -1.0, 1.0).astype(np.float32)
+        w = rng.integers(1, 16, dims).astype(np.float32)
+    elif kind == "one_subblock":
+        z0 = (dims[2] // 128 - 1) * 128 + 5 * 8
+        x, y, z = np.meshgrid(*(np.arange(8, dtype=np.float32),) * 3, indexing="ij")
+        t[8:16, 16:24, z0:z0 + 8] = np.clip((z - 3.5 + 0.4 * x - 0.2 * y) / 3.0, -1.0, 1.0)
+        w[8:16, 16:24, z0:z0 + 8] = np.where((x + y) % 3 == 0, 0.0,
+                                             rng.integers(1, 9, (8, 8, 8)))
+    return t, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(64, 64, 128), (128, 128, 256)], ids=["64x64x128", "128x128x256"])
+@pytest.mark.parametrize("kind", ["empty", "full", "one_subblock"])
+@pytest.mark.parametrize("dtype", LAYOUTS, ids=["packed", "float32"])
+def test_extract_kernel_bit_identical_on_built_volumes(cuda, dtype, kind, dims):
+    """K7 on an empty volume (every tile the all-zero shape), a fully
+    observed one (every sub-block fitted) and one with a single observed
+    sub-block (one tsdf fetch among unobserved chunks), in both layouts and
+    at a non-cubic size (512 chunks: more than one a block of the
+    persistent grid): every field of every chunk bit-identical."""
+    t, w = (torch.from_numpy(g).to(cuda) for g in _k7_grids(kind, dims))
+    vol = tsdf_new(dims[0], 3.0, 0.06, dtype=dtype, device=cuda)
+    data = pack_tw(t, w) if dtype == torch.int32 else torch.stack([t, w])
+    vol = vol._replace(data=data)
+    params = _extract_params(vol, 6.0, dims[0] // 8)
+    k = launch_extract_kernel(vol.data, params)
+    q = extract_planes_plain(vol.data, params)
+    torch.cuda.synchronize()
+    assert k.shape == planes_shape(dims)
+    n_valid = int((q[:, :, :, 4] > 0.5).sum())
+    assert n_valid == 0 if kind == "empty" else n_valid >= 1
+    if kind == "one_subblock":
+        assert int((q[:, :, :, 5] > 0).sum()) == 1  # one sub-block with crossings
     assert torch.equal(k, q)
 
 

@@ -19,6 +19,11 @@ K7. Bounds:
   * the count against the crossing truth of the reference's
     ``test_plane_extraction_matches_band_counts``, computed from the
     volume in numpy;
+  * the same bounds on built volumes of (64, 64, 256) in both layouts: an
+    empty one, and a sparse one whose chunks are unobserved but for one
+    with a single observed sub-block (on two rows in three) and one whose
+    observed sub-blocks carry a surface across a sub-block boundary in z:
+    the cases K7's weight-first kernel skips or fetches in part;
   * ``raycast_pallas`` at the first pose against the reference's: valid
     masks on >= 99% of pixels (the masks of K6's tests), depth within
     1e-4 m on >= 99.9% of the jointly valid pixels (the planes differ by
@@ -38,6 +43,7 @@ import torch
 from housescan_tpu.kinfu.camera import Intrinsics as JIntrinsics
 from housescan_tpu.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
 from housescan_tpu.kinfu.tsdf import tsdf_integrate as j_integrate
+from housescan_tpu.kinfu.tsdf import pack_tw as j_pack_tw
 from housescan_tpu.kinfu.tsdf import tsdf_new as j_tsdf_new
 from housescan_tpu.ops.planes_pallas import extract_subblock_planes as j_extract
 from housescan_tpu.ops.raycast_pallas import raycast_pallas as j_raycast_pallas
@@ -94,6 +100,64 @@ def extracted(scene, request):
     tv = _port_volume(jv)
     got = extract_subblock_planes(tv).numpy()
     return dict(want=want, got=got, tsdf=tv.tsdf.numpy(), weight=tv.weight.numpy(), vol=tv)
+
+
+def _built_grids(kind, dims, seed=0):
+    """(tsdf, weight) float32 numpy grids: "empty" (nothing observed) or
+    "sparse" (sub-block 5 of chunk (1, 2, last) alone observed on two rows
+    in three, a tilted plane crossing it; sub-blocks 6-9 of chunk (3, 0,
+    0) observed, a surface at z ~ 63.5 crossing from sub-block 7 into 8;
+    every other chunk unobserved)."""
+    rng = np.random.default_rng(seed)
+    t = np.ones(dims, np.float32)
+    w = np.zeros(dims, np.float32)
+    if kind == "sparse":
+        x, y, z = np.meshgrid(*(np.arange(8, dtype=np.float32),) * 3, indexing="ij")
+        z0 = (dims[2] // 128 - 1) * 128 + 5 * 8
+        t[8:16, 16:24, z0:z0 + 8] = np.clip((z - 3.5 + 0.4 * x - 0.2 * y) / 3.0, -1.0, 1.0)
+        w[8:16, 16:24, z0:z0 + 8] = np.where((x + y) % 3 == 0, 0.0, rng.integers(1, 9, (8, 8, 8)))
+        x, y, z = np.meshgrid(np.arange(8, dtype=np.float32), np.arange(8, dtype=np.float32),
+                              np.arange(48, 80, dtype=np.float32), indexing="ij")
+        t[24:32, 0:8, 48:80] = np.clip((z - 63.5 - 0.3 * x + 0.25 * y) / 4.0, -1.0, 1.0)
+        w[24:32, 0:8, 48:80] = rng.integers(1, 20, x.shape)
+    return t, w
+
+
+@pytest.fixture(scope="module", params=[("empty", "float32"), ("empty", "packed"),
+                                        ("sparse", "float32"), ("sparse", "packed")],
+                ids=lambda p: "-".join(p))
+def built(request):
+    """Both packages' planes of a built (64, 64, 256) volume."""
+    torch.set_num_threads(1)
+    kind, layout = request.param
+    t, w = _built_grids(kind, (64, 64, 256))
+    packed = layout == "packed"
+    jv = j_tsdf_new(64, 3.0, 0.06, dtype=jnp.int32 if packed else jnp.float32)
+    t, w = jnp.asarray(t), jnp.asarray(w)
+    jv = jv._replace(data=j_pack_tw(t, w) if packed else jnp.stack([t, w]))
+    want = np.asarray(j_extract(jv, interpret=True))
+    got = extract_subblock_planes(_port_volume(jv)).numpy()
+    return dict(kind=kind, want=want, got=got)
+
+
+def test_built_volume_matches_reference(built):
+    """Every field of every chunk within the bounds above, counts and
+    valid flags identical: the empty volume has no crossing anywhere, the
+    sparse one crossings in exactly its two observed chunks."""
+    got, want = built["got"], built["want"]
+    assert got.shape == want.shape == (8, 8, 2, 16, 16)
+    np.testing.assert_array_equal(got[:, :, :, 5], want[:, :, :, 5])
+    np.testing.assert_array_equal(got[:, :, :, 4] > 0.5, want[:, :, :, 4] > 0.5)
+    for f in range(16):
+        atol = 1e-4 if f in (0, 1, 2, 3, 12) else 1e-5
+        np.testing.assert_allclose(got[:, :, :, f], want[:, :, :, f], atol=atol)
+    crossed = np.argwhere((got[:, :, :, 5] > 0).any(-1))
+    if built["kind"] == "empty":
+        assert len(crossed) == 0
+    else:
+        assert sorted(map(tuple, crossed)) == [(1, 2, 1), (3, 0, 0)]
+        assert int((got[1, 2, 1, 5] > 0).sum()) == 1 and got[1, 2, 1, 4, 5] > 0.5
+        assert got[3, 0, 0, 4, 7] > 0.5
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,9 @@ Tolerances, and why:
     (K2's plain version against the reference's CPU ``jnp.linalg.solve``
     branch, which the reference holds to 2e-5; measured 3e-8).
   * K2's plain version against the reference kernel in interpret mode:
-    2e-5, the reference's bound; degenerate systems keep the pose exactly.
+    2e-5, the reference's bound; degenerate systems keep the pose exactly;
+    A, b and the pose stored apart (views into larger buffers, strided,
+    float64) give the same bits as contiguous float32 copies.
 """
 
 import pytest
@@ -363,3 +365,37 @@ def test_solve_degenerate_system_keeps_pose(case):
     np.testing.assert_array_equal(got.numpy(), pose)
     np.testing.assert_array_equal(np.asarray(want), pose)
     assert float(norm) <= 1e-9 and float(want_norm) <= 1e-9
+
+
+@pytest.mark.parametrize("storage", ["views", "float64"])
+def test_solve_on_separately_stored_inputs_matches_reference(storage):
+    """``solve_twist_compose`` on A, b and the pose stored apart, as the
+    XLA loop hands them over (K2 reads each where it lies): strided views
+    into larger buffers, or float64 tensors; against the reference kernel
+    in interpret mode (2e-5), and bit-equal to the call on contiguous
+    float32 copies."""
+    rng = np.random.default_rng(9)
+    for _ in range(4):
+        g = rng.normal(size=(50, 6))
+        a = (g.T @ g).astype(np.float32)
+        b = (rng.normal(size=6) * 0.1).astype(np.float32)
+        pose = np.eye(4, dtype=np.float32)
+        pose[3, :3] = rng.normal(size=3)
+        if storage == "views":
+            a_t = torch.zeros(6, 12)
+            a_t[:, ::2] = _t(a)
+            b_t = torch.zeros(6, 3)
+            b_t[:, 1] = _t(b)
+            p_t = torch.zeros(4, 4, 2)
+            p_t[:, :, 0] = _t(pose)
+            args = (p_t[:, :, 0], a_t[:, ::2], b_t[:, 1])
+            assert not any(x.is_contiguous() for x in args)
+        else:
+            args = (_t(pose).double(), _t(a).double(), _t(b).double())
+        got, got_norm = solve_twist_compose(*args, damping=3e-4)
+        ref, ref_norm = solve_twist_compose(_t(pose), _t(a), _t(b), damping=3e-4)
+        want, want_norm = j_solve_twist_compose(jnp.asarray(pose), jnp.asarray(a), jnp.asarray(b),
+                                                damping=3e-4, interpret=True)
+        assert torch.equal(got, ref) and torch.equal(got_norm, ref_norm)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+        assert abs(float(got_norm) - float(want_norm)) <= 2e-5
