@@ -6,7 +6,8 @@ Run from the repository root with one CUDA device visible:
     python3 chip_smoke.py
 
 It uses ``housescan_tpu_torch`` only (no JAX) and runs the workload of the
-reference bench: the synthetic furnished room, a 21-pose orbit
+reference bench (phase 14: also its curved and noisy worlds; phase 15:
+the whole cycle from depth frames to placed rooms): the synthetic furnished room, a 21-pose orbit
 (``orbit_poses(21, radius=0.25, yaw_range=0.4, pitch=0.25)``) and 640x480
 depth, on three paths: the kernel path on a 512^3 volume over 3 m in both
 layouts (int16-packed int32, and the float32 (2, X, Y, Z) array, the
@@ -60,15 +61,15 @@ float32 volume. Phases, each fatal on failure:
      time of each phase (fusion, surface points, RANSAC, marching
      tetrahedra, writes), then RANSAC once more on the same cloud, split
      into the detection on the card and the host's hulls;
-  9. xla-480: the orbit on the XLA path, a warm pass, then K2 (the
-     standalone solve) against its plain version on the card on the
-     (A, b, pose) of real iterations of that orbit and on degenerate
-     systems (bit-identical), its device time a call beside an empty
-     one-thread kernel's (the latency floor), one more step that must
-     not make the host wait on the card,
+  9. xla-480: the orbit on the XLA path, a warm pass over frames 0-2,
      then a timed pass with launch counts: pose error <= 5 mm, 20/20
      tracked, model-map coverage >= 0.5, K1 and K2 launched, K3-K8 not, no
-     plain version; print ms/frame, fps and peak memory;
+     plain version; print ms/frame, fps and peak memory; then K2 (the
+     standalone solve) against its plain version on the card on the
+     (A, b, pose) of real iterations of that orbit's last frame and on
+     degenerate systems (bit-identical), its device time a call beside an
+     empty one-thread kernel's (the latency floor), and one more step
+     that must not make the host wait on the card;
  10. scan-480: ``scan_to_room_dir`` at ``Config()`` with a 480^3 volume,
      which takes the XLA path unasked, into
      ``build/chip_smoke/scan_room_480``, with phase 8's gates and launch
@@ -100,13 +101,32 @@ float32 volume. Phases, each fatal on failure:
      K1's device time and an estimate of its instruction-issue floor
      (its static SASS count for each warp at 4 a clock an SM, cuobjdump); each
      kernel's resident blocks an SM (the occupancy calculator);
- 13. profile three fusion steps of the kernel path (both layouts) and the
-     XLA path: device kernel time per step against the timed pass's frame
+ 13. profile three fusion steps of the kernel path (both layouts) and one
+     of the XLA path: device kernel time per step against the timed pass's frame
      time (the device's busy share) and beside the readings before K5's
      and K6's redesign, the launches per step, each stage's device and
      host time a step, the top kernels, and the full tables in
      ``build/chip_smoke/profile.txt``, ``profile_f32.txt`` and
-     ``profile_xla.txt``.
+     ``profile_xla.txt``;
+ 14. curved-512 and noisy-512: the bench orbit on the kernel path at
+     box-512's setup in the curved world (spheres, a capped cylinder,
+     yaw-rotated boxes), and in the box world with 2 mm depth noise
+     (seed 0) rounded through uint16 millimetres; each from a fresh
+     packed volume with the counts set to 0: every kernel of the path
+     launched, no plain version, no frame dropped, the pose error within
+     bench.py's budget (12.5 and 11.0 mm), no host synchronisation in one
+     more step; its fps, device time a step, and K1, K3, K4, K5 and K6
+     against their plain versions on its last frame with phase 4's
+     bounds;
+ 15. rooms: two rooms scanned by ``scan_to_room_dir`` at ``Config()``
+     (512^3 float32, 640x480, 32 known poses each, as
+     tests/test_end_to_end.py sweeps them) into ``build/chip_smoke/rooms``,
+     then the room stage with every scene on the card: load, corners,
+     cuboid fit, a room moved, walls connected, positions optimised,
+     .xf files and placed full-resolution clouds, with that test's
+     assertions and the host seconds of each phase; then the same on the
+     CPU from the same directories, the card held to it (corners 1e-4 m,
+     rmse 1e-5, positions 1e-4 m, .xf 1e-5).
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
@@ -170,6 +190,11 @@ def chunk_bytes(data) -> int:
     """Bytes of one (8, 8, 128) chunk of the volume's layout: 4 a voxel
     packed, 8 float32."""
     return CHUNK_VOXELS * (4 if data.dim() == 3 else 8)
+
+
+def mark(phase: int, t_start: float) -> None:
+    """Print the host seconds since the start when ``phase`` ends."""
+    print(f"# phase {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -862,7 +887,7 @@ def profile_steps(intr, poses, frames, res, device, out_path, n=3, dtype=torch.i
 PROFILES = (
     (f"box-{RES}", dict(res=RES), "profile.txt", (4.718, 2494)),
     (f"box-{RES}-f32", dict(res=RES, dtype=torch.float32), "profile_f32.txt", (4.795, 2494)),
-    (f"xla-{XLA_RES}", dict(res=XLA_RES, dtype=torch.float32, use_pallas=False),
+    (f"xla-{XLA_RES}", dict(res=XLA_RES, dtype=torch.float32, use_pallas=False, n=1),
      "profile_xla.txt", (85.239, 16896)),
 )
 
@@ -983,26 +1008,17 @@ def k2_readings(calls, card, reps=200):
 
 
 def run_xla(intr, poses, frames, device, card):
-    """Phase 8, xla-480: a warm pass, K2 against its plain version on
-    systems of that pass, then the timed pass with launch counts."""
+    """Phase 9, xla-480: a warm pass over frames 0-2, the timed pass with
+    launch counts and its gates, then K2 against its plain version on
+    systems of the timed pass's last frame, and one more step that must
+    not make the host wait on the card."""
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
-    st, warm_s, _ = run_orbit(intr, poses, frames, XLA_RES, device, dtype=torch.float32,
+    st, warm_s, _ = run_orbit(intr, poses[:3], frames[:3], XLA_RES, device, dtype=torch.float32,
                               use_pallas=False)
-    systems = k2_systems(st, frames[N_FRAMES], intr)
-    err, calls, k2_bound = compare_k2(systems)
-    print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from the warm xla-{XLA_RES} "
-          f"pass's last frame, 3 degenerate), bit-identical", flush=True)
-    k2_readings(calls, card)
-    from housescan_tpu_torch.kinfu.pipeline import kinfu_step
-
-    _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr, use_pallas=False))
-    print(f"# xla-{XLA_RES}: one more step made {len(syncs)} host synchronisations", flush=True)
-    if syncs:
-        fail(f"the XLA step made the host wait on the card at {syncs}")
-    del st, systems
+    del st
     torch.cuda.empty_cache()
-
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_counts()
     st, secs, tracked = run_orbit(intr, poses, frames, XLA_RES, device, dtype=torch.float32,
@@ -1013,7 +1029,7 @@ def run_xla(intr, poses, frames, device, card):
     cover = float(st.model_maps[7].mean())
     print(f"# xla-{XLA_RES} {intr.width}x{intr.height} float32 (use_pallas=False): {N_FRAMES} frames "
           f"in {secs:.4f} s = {secs / N_FRAMES * 1000:.3f} ms/frame = {N_FRAMES / secs:.2f} fps "
-          f"(warm pass {warm_s:.4f} s); pose error {err_mm:.3f} mm; last rmse "
+          f"(warm pass of 3 frames {warm_s:.4f} s); pose error {err_mm:.3f} mm; last rmse "
           f"{float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; tracked "
           f"{sum(tracked)}/{len(tracked)}; model-map coverage {cover:.3f}; peak memory "
           f"{peak_gb:.3f} GB; K2 launches {launches['solve6']} [{card}]", flush=True)
@@ -1027,6 +1043,16 @@ def run_xla(intr, poses, frames, device, card):
     if not bool(torch.isfinite(st.model_maps).all()) or cover < 0.5:
         fail(f"xla-480 model maps malformed or cover only {cover:.3f} of the image")
     check_counts(f"xla-{XLA_RES}", launches, plain, cuda_lib.XLA_PATH)
+
+    systems = k2_systems(st, frames[N_FRAMES], intr)
+    err, calls, k2_bound = compare_k2(systems)
+    print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from the timed xla-{XLA_RES} "
+          f"pass's last frame, 3 degenerate), bit-identical", flush=True)
+    k2_readings(calls, card)
+    _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr, use_pallas=False))
+    print(f"# xla-{XLA_RES}: one more step made {len(syncs)} host synchronisations", flush=True)
+    if syncs:
+        fail(f"the XLA step made the host wait on the card at {syncs}")
     return dict(err=err, calls=calls, bound=k2_bound, launches=launches, secs=secs)
 
 
@@ -1479,7 +1505,248 @@ def probe(intr, poses, frames, device, card):
     time_kernels(["solve6"], {"solve6": k2_calls}, {"solve6": k2_bound}, card)
 
 
+NOISE = 0.002  # phase 14's sensor noise: sigma at 2 m, bench.py's HOUSESCAN_BENCH_NOISE
+# Phase 14's worlds: (cell, noise, bench.py's pose-budget factor; the
+# curved world's budget is 2.5 times the box world's, bench.py:259-266)
+WORLDS = ((f"curved-{RES}", 0.0, 2.5), (f"noisy-{RES}", NOISE, 1.0))
+
+
+def world_frames(intr, poses, device, noise):
+    """Phase 14's frames of the bench orbit: the curved world noiseless
+    (bench.py with HOUSESCAN_BENCH_WORLD=curved), or the box world with
+    depth noise ``noise`` drawn from seed 0 and rounded through uint16
+    millimetres (HOUSESCAN_BENCH_NOISE and HOUSESCAN_BENCH_QUANT=1)."""
+    from housescan_tpu_torch.kinfu.synthetic import (
+        curved_furnished_room, furnished_room, render_depth_stream,
+    )
+
+    if not noise:
+        half, boxes, spheres, cyls, obbs = curved_furnished_room()
+        return render_depth_stream(intr, poses, half, boxes, spheres=spheres, cylinders=cyls,
+                                   obbs=obbs, device=device)
+    half, boxes = furnished_room()
+    frames = render_depth_stream(intr, poses, half, boxes, noise=noise, seed=0, device=device)
+    return torch.round(frames * 1000.0).to(torch.int32).to(torch.float32) / 1000.0
+
+
+def run_worlds(intr, poses, device, card):
+    """Phase 14: the curved world and the noisy, quantised world on the
+    kernel path at box-512's setup. Each orbit runs once from a fresh
+    packed volume with the launch counts set to 0 before it: every kernel
+    of the path launched, no plain version, no frame dropped, the pose
+    error within bench.py's budget ((0.15 + 150 noise) mm a frame + 2 mm,
+    x2.5 in the curved world: 12.5 and 11.0 mm), and one more step makes
+    no host synchronisation; then its device time a step (profiler, 3
+    steps) and, on its last frame, K1, K3, K4, K5 and K6 against their
+    plain versions with phase 4's bounds (``compare_kernels``)."""
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+    from housescan_tpu_torch.ops import cuda_lib
+
+    pose1 = torch.from_numpy(poses[1]).to(device)
+    for tag, noise, factor in WORLDS:
+        frames = world_frames(intr, poses, device, noise)
+        budget = ((0.15 + 150.0 * noise) * N_FRAMES + 2.0) * factor
+        cuda_lib.reset_counts()
+        st, secs, tracked = run_orbit(intr, poses, frames, RES, device)
+        launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+        err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1e3
+        print(f"# {tag} {intr.width}x{intr.height} (packed volume): {N_FRAMES} frames in "
+              f"{secs:.4f} s = {secs / N_FRAMES * 1000:.3f} ms/frame = {N_FRAMES / secs:.2f} fps; "
+              f"pose error {err_mm:.3f} mm (budget {budget:.1f}); tracked "
+              f"{sum(tracked)}/{len(tracked)}; last rmse {float(st.last_rmse) * 1000:.4f} mm corr "
+              f"{int(st.last_corr)} [{card}]", flush=True)
+        print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+        check_counts(tag, launches, plain, cuda_lib.KERNEL_PATH)
+        if not all(tracked):
+            fail(f"{tag}: {len(tracked) - sum(tracked)} frame(s) dropped")
+        if err_mm > budget:
+            fail(f"{tag} pose error {err_mm:.3f} mm exceeds {budget:.1f} mm")
+        _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr))
+        print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
+        if syncs:
+            fail(f"the {tag} step made the host wait on the card at {syncs}")
+        dev_ms, n_launch = profile_steps(intr, poses, frames, RES, device,
+                                         os.path.join(OUT, f"profile_{tag}.txt"))[:2]
+        print(f"# {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} launches/step "
+              f"(profiler, 3 steps) [{card}]", flush=True)
+        st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                         dtype=torch.int32, device=device)
+        st0 = kinfu_step(st0, frames[0], intr)
+        errs = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1, card)[0]
+        print(f"# {tag} compare (last frame, phase 4's bounds): max abs err {json.dumps(errs)}",
+              flush=True)
+        del st, st0, frames
+        torch.cuda.empty_cache()
+
+
+def room_poses(ri):
+    """Room ``ri``'s known poses, as tests/test_end_to_end.py scans it: the
+    walls up and down, a floor pass and a ceiling pass, 8 poses each."""
+    from housescan_tpu_torch.kinfu.synthetic import orbit_poses
+
+    sweeps = [orbit_poses(8, radius=0.25, yaw_range=6.283, pitch=p, seed=ri) for p in (0.35, -0.35)]
+    sweeps.append(orbit_poses(8, radius=0.7, height=-0.6, yaw_range=6.283, pitch=-1.2, seed=ri))
+    sweeps.append(orbit_poses(8, radius=0.7, height=0.6, yaw_range=6.283, pitch=1.2, seed=ri))
+    return np.concatenate(sweeps)
+
+
+ROOM_PHASES = ("load", "corners", "cuboid", "move", "walls", "optimize", "xf", "export")
+
+
+def room_cycle(dirs, device, out):
+    """The room stage over the scanned room directories with every scene on
+    ``device``: load, corners (suggestions accepted as
+    tests/test_end_to_end.py accepts them), cuboid fit, room 1 moved 3 m
+    along x, the facing walls connected, positions optimised, .xf files,
+    placed full-resolution clouds; that test's assertions. Returns (the
+    rooms, their cuboid rmse, the optimiser's results, the .xf matrices,
+    placed point counts, host seconds by phase)."""
+    from itertools import product
+
+    from housescan_tpu_torch.io.pcd import load_pcd
+    from housescan_tpu_torch.io.xf import load_xf
+    from housescan_tpu_torch.rooms import (
+        Scene, WallRelation, connect_walls, export_all_room_xf_files, export_room_full_res,
+        fit_cuboid_to_room, load_room, optimize_room_positions, suggest_corners, translate_room,
+    )
+    from housescan_tpu_torch.rooms.corners import accept_corner_suggestion
+
+    secs = dict.fromkeys(ROOM_PHASES, 0.0)
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] += now - clock[0]
+        clock[0] = now
+
+    scene = Scene(device=device)
+    rooms = []
+    for d in dirs:
+        room = load_room(scene, d)
+        lap("load")
+        room = suggest_corners(scene, room, cutoff_factor=1.3)
+        if len(room.planes) < 6 or (len(room.corners) != 8 and len(room.suggested_corners) < 8):
+            fail(f"rooms on {device}: {d} has {len(room.planes)} planes, {len(room.corners)} "
+                 f"corners, {len(room.suggested_corners)} suggestions")
+        if len(room.corners) != 8:
+            pts = room.cloud.points
+            lo, hi = pts.min(0), pts.max(0)
+            for sx, sy, sz in product((0, 1), repeat=3):
+                target = np.array([[lo[0], hi[0]][sx], [lo[1], hi[1]][sy], [lo[2], hi[2]][sz]])
+                sid, spt = min(room.suggested_corners, key=lambda s: np.linalg.norm(s[1] - target))
+                if np.linalg.norm(spt - target) >= 0.05:
+                    fail(f"rooms on {device}: no corner suggestion within 5 cm of {target}")
+                room = accept_corner_suggestion(scene, room, sid)
+        if len(room.corners) != 8:
+            fail(f"rooms on {device}: {d} has {len(room.corners)} corners")
+        rooms.append(room)
+        lap("corners")
+    rmses = []
+    for i, room in enumerate(rooms):
+        fit = fit_cuboid_to_room(scene, room)
+        if fit is None or not fit[1] < 0.02:
+            fail(f"rooms on {device}: room {i} cuboid fit {None if fit is None else fit[1]}")
+        rooms[i] = fit[0]
+        rmses.append(fit[1])
+    lap("cuboid")
+    scene.update_room(translate_room(scene.rooms[rooms[1].room_id],
+                                     np.array([3.0, 0.0, 0.0], np.float32), device=device))
+    lap("move")
+    p0 = min(scene.rooms[rooms[0].room_id].planes, key=lambda p: p.normal[0])
+    p1 = max(scene.rooms[rooms[1].room_id].planes, key=lambda p: p.normal[0])
+    if connect_walls(scene, p0.plane_id, p1.plane_id, WallRelation.opposite(0.1)) is None:
+        fail(f"rooms on {device}: the facing walls did not connect")
+    lap("walls")
+    results = optimize_room_positions(scene)
+    if not results or not all(np.isfinite(r[2]) for r in results):
+        fail(f"rooms on {device}: optimize_room_positions gave {results}")
+    lap("optimize")
+    xfs = export_all_room_xf_files(scene, os.path.join(out, f"xf_{device}"))
+    if len(xfs) != 2:
+        fail(f"rooms on {device}: {len(xfs)} .xf files")
+    lap("xf")
+    placed = []
+    for room in rooms:
+        path = export_room_full_res(scene.rooms[room.room_id],
+                                    os.path.join(out, f"placed_{device}_{room.room_id}.pcd"),
+                                    device=device)
+        placed.append(len(load_pcd(path)))
+    lap("export")
+    if min(placed) <= 1000:
+        fail(f"rooms on {device}: placed clouds of {placed} points")
+    return ([scene.rooms[r.room_id] for r in rooms], rmses, results, [load_xf(x) for x in xfs],
+            placed, secs)
+
+
+def run_rooms(intr, device, card):
+    """Phase 15: two rooms scanned with ``scan_to_room_dir`` at ``Config()``
+    (512^3 float32, 640x480; 32 known poses each, tests/test_end_to_end.py's
+    sweeps), then the room stage on the card (``room_cycle``), then again
+    on the CPU from the same directories; the card held to the CPU:
+    corners within 1e-4 m (as point sets: a cuboid's parametrisation is
+    not unique), cuboid rmse within 1e-5, optimised corner means within
+    1e-4 m, .xf matrices within 1e-5. The card's cycle runs twice, the
+    first paying its libraries' first calls, and both are timed."""
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.config import Config
+    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+    from housescan_tpu_torch.kinfu.synthetic import furnished_room, render_depth_stream
+    from housescan_tpu_torch.ops import cuda_lib
+
+    out = os.path.join(OUT, "rooms")
+    shutil.rmtree(out, ignore_errors=True)
+    half, boxes = furnished_room()
+    dirs = []
+    cuda_lib.reset_counts()
+    for ri in range(2):
+        poses = room_poses(ri)
+        frames = render_depth_stream(intr, poses, half, boxes, seed=ri, device=device).cpu().numpy()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs.append(scan_to_room_dir(DepthStream(frames=frames, intrinsics=intr),
+                                     os.path.join(out, f"scan{ri}"), config=Config(),
+                                     init_pose=poses[0], known_poses=poses, timings=timings))
+        print(f"# rooms: scan {ri} at Config() ({len(poses)} known poses): "
+              f"{time.perf_counter() - t0:.4f} s, "
+              + " ".join(f"{k} {v:.4f} s" for k, v in timings.items()) + f" [{card}]", flush=True)
+        del frames
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    print(f"# rooms: scans' launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    # known poses skip ICP, so K3 does not run
+    check_counts("the room scans", launches, plain,
+                 tuple(k for k in cuda_lib.KERNEL_PATH if k != "icp_level"))
+    torch.cuda.empty_cache()
+
+    # the card's first cycle pays its libraries' first calls; the second is warm
+    res = {run: room_cycle(dirs, run.split()[0], out) for run in ("cuda", "cuda warm", "cpu")}
+    (gr, grm, gres, gxf, gpl, _), (cr, crm, cres, cxf, cpl, _) = res["cuda"], res["cpu"]
+    for run, r in res.items():
+        s = r[-1]
+        print(f"# rooms on {run}: host seconds " + " ".join(f"{k} {s[k]:.4f}" for k in ROOM_PHASES)
+              + f"; total {sum(s.values()):.4f} s [{card}]", flush=True)
+    corner_err = 0.0
+    for a, b in zip(gr, cr):
+        ca, cb = (np.stack([c for _, c in r.corners]) for r in (a, b))
+        dist = np.linalg.norm(ca[:, None] - cb[None], axis=-1)
+        corner_err = max(corner_err, float(dist.min(axis=1).max()), float(dist.min(axis=0).max()))
+    rmse_err = max(abs(a - b) for a, b in zip(grm, crm))
+    pos_err = max(float(np.abs(a.corner_mean() - b.corner_mean()).max()) for a, b in zip(gr, cr))
+    xf_err = max(float(np.abs(a - b).max()) for a, b in zip(gxf, cxf))
+    print(f"# rooms: {[len(r.planes) for r in gr]} planes after the fit, cuboid rmse "
+          f"{[f'{x:.6f}' for x in grm]} m, optimiser {[(int(a), n, f'{r:.3e}') for a, n, r in gres]}, "
+          f"placed {gpl} points; card against CPU: corners {corner_err:.3e} m, rmse {rmse_err:.3e}, "
+          f"positions {pos_err:.3e} m, .xf {xf_err:.3e}", flush=True)
+    if [(a, n) for a, n, _ in gres] != [(a, n) for a, n, _ in cres] or gpl != cpl:
+        fail(f"rooms: the card's optimiser or export differs from the CPU's: {gres} {cres} {gpl} {cpl}")
+    if corner_err > 1e-4 or rmse_err > 1e-5 or pos_err > 1e-4 or xf_err > 1e-5:
+        fail("rooms: the card's room stage differs from the CPU's beyond its bounds")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     device = torch.device("cuda")
@@ -1497,6 +1764,7 @@ def main() -> None:
     print(f"# build: {cuda_lib.build_info['seconds']:.1f} s -> {cuda_lib.build_info['path']}", flush=True)
     for ln in ptxas:
         print(f"# ptxas: {ln}", flush=True)
+    mark(3, t_start)
 
     intr, poses, frames = workload(device)
     if sys.argv[1:] == ["--probe"]:
@@ -1506,6 +1774,7 @@ def main() -> None:
     # 4. box-512 (packed): warm orbit, then each kernel against its plain version
     errs, calls, bounds, sizes, warm_s, st = box_kernels(intr, poses, frames, device, card)
     del st
+    mark(4, t_start)
 
     # 5. split and unsplit integrates of the orbit
     same, observed = split_orbit_identical(intr, poses, frames, device, torch.int32)
@@ -1513,11 +1782,13 @@ def main() -> None:
         fail("the orbit integrated with the free split differs from the unsplit one")
     print(f"# split vs unsplit orbit (21 integrates at the true poses): bit-identical, "
           f"{observed} observed voxels", flush=True)
+    mark(5, t_start)
 
     # 6. the timed main-path run, with launch counts
     st, secs = timed_orbit(intr, poses, frames, device, card, torch.int32, warm_s)
     del st
     torch.cuda.empty_cache()
+    mark(6, t_start)
 
     # 7. box-512-f32: the kernel path on the float32 volume
     f32, st, warm_f = f32_kernels(intr, poses, frames, device, card)
@@ -1534,25 +1805,30 @@ def main() -> None:
     st, secs_f = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
     del st
     torch.cuda.empty_cache()
+    mark(7, t_start)
 
     # 8. the scan at full width (fuses into float32)
     scan_launches = run_scan(intr, poses, frames, card)
     torch.cuda.empty_cache()
+    mark(8, t_start)
 
     # 9. xla-480: the XLA path's orbit, K2 against its plain version
     xla = run_xla(intr, poses, frames, device, card)
     errs["solve6"], calls["solve6"], bounds["solve6"] = xla["err"], xla["calls"], xla["bound"]
     torch.cuda.empty_cache()
+    mark(9, t_start)
 
     # 10. scan-480: the scan takes the XLA path unasked
     run_scan(intr, poses, frames, card, res=XLA_RES)
     torch.cuda.empty_cache()
+    mark(10, t_start)
 
     # 11. dense-512: K8, then raycast_pallas (K7, K6)
     dense = run_dense(intr, poses, frames, device, card)
     for key in ("errs", "calls", "bounds"):
         {"errs": errs, "calls": calls, "bounds": bounds}[key].update(dense[key])
     torch.cuda.empty_cache()
+    mark(11, t_start)
 
     # 12. kernel vs plain times, CUDA events; resident blocks an SM
     occupancy_report(intr, card)
@@ -1577,11 +1853,20 @@ def main() -> None:
           f"(packed), {f32['tsdf_free'][3]} / {f32['tsdf_free'][4]} (float32)", flush=True)
     del dense
     torch.cuda.empty_cache()
+    mark(12, t_start)
 
     # 13. where the device time goes, on each path
     for (tag, kw, name, before), secs_ in zip(PROFILES, (secs, secs_f, xla["secs"])):
         report_profile(tag, intr, poses, frames, device, card, secs_, kw, name, before)
+    mark(13, t_start)
 
+    # 14. the curved world and the noisy, quantised world on the kernel path
+    run_worlds(intr, poses, device, card)
+    mark(14, t_start)
+
+    # 15. two scanned rooms through the room stage, on the card and the CPU
+    run_rooms(intr, device, card)
+    mark(15, t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
-"""Host-side file formats: .pcd clouds, .ply meshes and planes.txt (numpy
-copies of ``housescan_tpu/io``, byte-compatible with its writers)."""
+"""Host-side file formats: .pcd clouds, .ply meshes, planes.txt and .xf
+transforms (numpy copies of ``housescan_tpu/io``, byte-compatible with
+its writers)."""
 
 import numpy as np
 import torch

@@ -923,3 +923,101 @@ def test_dense_path_launches_its_kernels_only(cuda):
                if k not in cuda_lib.DENSE_PATH)
     assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
     assert float(maps[7].mean()) > 0.5
+
+
+@pytest.mark.gpu
+def test_raycast_kernel_bit_identical_on_curved_world(cuda):
+    """K6 on the planes the kernel path fitted to the curved world
+    (spheres, a capped cylinder, yaw-rotated boxes: the geometry its
+    curvature trim and cliff exist for), after 4 tracked frames on a
+    256^3 packed volume at 640x480: bit-identical to its plain version
+    on all 9 rows."""
+    from housescan_tpu_torch.kinfu.synthetic import curved_furnished_room
+
+    half, boxes, spheres, cyls, obbs = curved_furnished_room()
+    poses = orbit_poses(4, radius=0.25, yaw_range=0.08, pitch=0.25)
+    frames = render_depth_stream(VGA, poses, half, boxes, spheres=spheres, cylinders=cyls,
+                                 obbs=obbs, device=cuda)
+    st = kinfu_init(VGA, resolution=256, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                    dtype=torch.int32, device=cuda)
+    st, _ = kinfu_run(st, frames, VGA)
+    assert bool(st.last_tracked)
+    cand = build_tile_candidates(st.planes, st.pose, VGA, st.volume)
+    params = _ray_params(st.pose, VGA, 0.3, 5)
+    k = launch_raycast_kernel(cand, params, 480, 640)
+    q = raycast_tiles_plain(cand, params, 480, 640)
+    torch.cuda.synchronize()
+    assert int((q[0] > 0).sum()) > 640 * 480 // 4
+    assert torch.equal(k, q)
+
+
+@pytest.mark.gpu
+def test_noisy_frames_on_card_match_cpu(cuda):
+    """The same seed draws the same noise for either device: the noise
+    each adds (noisy frame minus clean frame) agrees to 1e-6 m, and the
+    frames to 1e-5 m."""
+    half, boxes = furnished_room()
+    poses = orbit_poses(3, radius=0.25, yaw_range=0.3, pitch=0.25)
+    got = {}
+    for dev in (cuda, "cpu"):
+        noisy = render_depth_stream(VGA, poses, half, boxes, noise=0.002, seed=3, device=dev)
+        clean = render_depth_stream(VGA, poses, half, boxes, device=dev)
+        assert noisy.device.type == torch.device(dev).type
+        got[str(dev)] = (noisy.cpu(), (noisy.double() - clean.double()).cpu())
+    (a, na), (b, nb) = got["cuda"], got["cpu"]
+    assert float(nb.abs().max()) > 1e-4
+    assert float((na - nb).abs().max()) <= 1e-6
+    assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_room_stage_on_card_matches_cpu(cuda, tmp_path):
+    """Two synthetic rooms through load, corners, cuboid fit, a move,
+    wall connection, position optimisation and export, once with every
+    scene on the card and once on the CPU: corners within 1e-4 m (as a
+    point set: a cuboid's parametrisation is not unique), rmse within
+    1e-5, optimised corner means within 1e-4 m, .xf matrices within 1e-5,
+    placed points within 1e-4 m."""
+    from housescan_tpu_torch.io.pcd import load_pcd
+    from housescan_tpu_torch.io.xf import load_xf
+    from housescan_tpu_torch.rooms import (
+        Scene, WallRelation, connect_walls, export_all_room_xf_files, export_room_full_res,
+        fit_cuboid_to_room, load_room, optimize_room_positions, suggest_corners, translate_room,
+    )
+    from housescan_tpu_torch.testing import make_synthetic_room_dir
+
+    dirs = [make_synthetic_room_dir(tmp_path / f"room{i}", seed=i, noise=0.002,
+                                    offset=np.array([4.3 * i, 0.0, 0.0])) for i in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = Scene(device=dev)
+        rooms, rmses = [], []
+        for d in dirs:
+            room, rmse, _ = fit_cuboid_to_room(scene, suggest_corners(scene, load_room(scene, d)))
+            rooms.append(room)
+            rmses.append(rmse)
+        scene.update_room(translate_room(scene.rooms[rooms[1].room_id],
+                                         np.array([3.0, 0.0, 0.0], np.float32), device=dev))
+        p0 = min(scene.rooms[rooms[0].room_id].planes, key=lambda p: p.normal[0])
+        p1 = max(scene.rooms[rooms[1].room_id].planes, key=lambda p: p.normal[0])
+        assert connect_walls(scene, p0.plane_id, p1.plane_id, WallRelation.opposite(0.1)) is not None
+        results = optimize_room_positions(scene)
+        xfs = export_all_room_xf_files(scene, tmp_path / f"xf_{dev}")
+        placed = [load_pcd(export_room_full_res(scene.rooms[r.room_id], tmp_path / f"{dev}{k}.pcd",
+                                                device=dev)).points
+                  for k, r in enumerate(rooms)]
+        final = [scene.rooms[r.room_id] for r in rooms]
+        out[dev] = (final, rmses, results, [load_xf(x) for x in xfs], placed)
+    (gr, grm, gres, gxf, gpl), (cr, crm, cres, cxf, cpl) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(grm, crm, atol=1e-5)
+    assert len(gres) == len(cres) >= 1
+    for a, b in zip(gr, cr):
+        ca, cb = (np.stack([c for _, c in r.corners]) for r in (a, b))
+        dist = np.linalg.norm(ca[:, None] - cb[None], axis=-1)
+        assert dist.min(axis=1).max() < 1e-4 and dist.min(axis=0).max() < 1e-4
+        np.testing.assert_allclose(a.corner_mean(), b.corner_mean(), atol=1e-4)
+    for a, b in zip(gxf, cxf):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    for a, b in zip(gpl, cpl):
+        assert len(a) > 1000
+        np.testing.assert_allclose(a, b, atol=1e-4)

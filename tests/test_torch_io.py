@@ -166,3 +166,46 @@ def test_planes_txt_bytes_match_reference(tmp_path):
     with pytest.raises(planes_txt.PlanesTxtError):
         (tmp_path / "bad.txt").write_text("1 2 3\n")
         planes_txt.load_planes_txt(tmp_path / "bad.txt")
+
+
+class TestXf:
+    """Twins of the reference's .xf tests, and byte parity with its writer."""
+
+    def test_round_trip(self, tmp_path):
+        from housescan_tpu_torch.io.xf import load_xf, save_xf
+
+        m = np.eye(4)
+        m[:3, :3] = np.array([[0, 1, 0], [-1, 0, 0], [0, 0, 1]])
+        m[3, :3] = [1.5, -2.0, 3.25]
+        save_xf(tmp_path / "r.xf", m)
+        np.testing.assert_allclose(load_xf(tmp_path / "r.xf"), m)
+        # a tensor on any device goes through the same writer
+        save_xf(tmp_path / "t.xf", torch.from_numpy(m.astype(np.float32)))
+        np.testing.assert_allclose(load_xf(tmp_path / "t.xf"), m)
+
+    def test_file_is_column_vector_convention(self, tmp_path):
+        from housescan_tpu_torch.io.xf import save_xf
+
+        m = np.eye(4)
+        m[3, :3] = [7.0, 8.0, 9.0]
+        save_xf(tmp_path / "t.xf", m)
+        rows = [[float(v) for v in line.split()]
+                for line in (tmp_path / "t.xf").read_text().splitlines()]
+        assert [r[3] for r in rows[:3]] == [7.0, 8.0, 9.0]
+
+    def test_malformed_raises(self, tmp_path):
+        from housescan_tpu_torch.io.xf import load_xf
+
+        (tmp_path / "s.xf").write_text("1 2 3\n")
+        with pytest.raises(ValueError):
+            load_xf(tmp_path / "s.xf")
+
+    def test_bytes_match_reference(self, tmp_path):
+        from housescan_tpu.io.xf import load_xf as j_load, save_xf as j_save
+        from housescan_tpu_torch.io.xf import load_xf, save_xf
+
+        m = np.random.default_rng(0).normal(size=(4, 4)).astype(np.float32)
+        save_xf(tmp_path / "p.xf", m)
+        j_save(tmp_path / "j.xf", m)
+        assert (tmp_path / "p.xf").read_bytes() == (tmp_path / "j.xf").read_bytes()
+        np.testing.assert_array_equal(load_xf(tmp_path / "j.xf"), j_load(tmp_path / "p.xf"))

@@ -44,7 +44,7 @@ def _one_thread():
 def stream():
     half, boxes = furnished_room()
     poses = orbit_poses(10, radius=0.25, yaw_range=np.pi / 16, pitch=0.25)
-    frames = render_depth_stream(INTR, poses, half, boxes)
+    frames = render_depth_stream(INTR, poses, half, boxes, device="cpu")
     return poses, frames
 
 
@@ -131,7 +131,7 @@ def test_tracking_loss_drops_frame(stream):
     assert bool(st.last_tracked)
     half, boxes = furnished_room()
     far = orbit_poses(2, radius=0.4, yaw_range=np.pi)[1:]
-    bad = render_depth_stream(INTR, far, half, boxes)[0]
+    bad = render_depth_stream(INTR, far, half, boxes, device="cpu")[0]
     before = {k: v.copy() for k, v in state_to_numpy(st).items()}
     st = kinfu_step(st, bad, INTR)
     assert not bool(st.last_tracked)
@@ -164,7 +164,8 @@ def test_entry_points_default_to_the_card():
     from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state
     from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 
-    for fn in (kinfu_init, state_from_numpy, scan_to_room_dir, load_scan_state, tsdf_new):
+    for fn in (kinfu_init, state_from_numpy, scan_to_room_dir, load_scan_state, tsdf_new,
+               render_depth_stream):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
@@ -176,7 +177,7 @@ def test_forced_pose_skips_tracking(stream):
     st = kinfu_step(st, frames[0], INTR)
     half, boxes = furnished_room()
     far = orbit_poses(2, radius=0.4, yaw_range=np.pi)[1]
-    bad = render_depth_stream(INTR, far[None], half, boxes)[0]
+    bad = render_depth_stream(INTR, far[None], half, boxes, device="cpu")[0]
     st = kinfu_step(st, bad, INTR, forced_pose=far)
     assert bool(st.last_tracked)
     np.testing.assert_array_equal(st.pose.numpy(), far)
@@ -198,6 +199,8 @@ def test_port_imports_no_jax():
         "import housescan_tpu_torch.kinfu.raycast, housescan_tpu_torch.ops.solve6\n"
         "import housescan_tpu_torch.ops.tsdf_cuda, housescan_tpu_torch.ops.planes_cuda\n"
         "from housescan_tpu_torch.ops import tsdf_integrate_pallas\n"
+        "import housescan_tpu_torch.rooms, housescan_tpu_torch.solvers, housescan_tpu_torch.utils\n"
+        "import housescan_tpu_torch.geometry, housescan_tpu_torch.io.xf, housescan_tpu_torch.testing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'housescan_tpu.'))"
         " or m == 'housescan_tpu']\n"
         "assert not bad, bad\n"
