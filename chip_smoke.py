@@ -126,7 +126,36 @@ float32 volume. Phases, each fatal on failure:
      .xf files and placed full-resolution clouds, with that test's
      assertions and the host seconds of each phase; then the same on the
      CPU from the same directories, the card held to it (corners 1e-4 m,
-     rmse 1e-5, positions 1e-4 m, .xf 1e-5).
+     rmse 1e-5, positions 1e-4 m, .xf 1e-5);
+ 16. box-512-bf16: the kernel path on a fresh (2, 512, 512, 512) bfloat16
+     volume: a warm pass, K4 and K5 against their plain versions
+     (bit-identical) and on the empty list, K7 as the oracle of K4's
+     planes and against its plain version (bit-identical, its bound from
+     the data: 2 bytes a weight and an observed tsdf), split against
+     unsplit bit-identical, the full-width twin of the reference's
+     test_bf16_parity_with_f32 (frame 0 against a float32 volume: weights
+     identical, |dt| < 5e-4 where |t| < 0.1, < 4.5e-3 wherever observed),
+     then the timed pass with phase 6's gates; K4, K5 and K7 timed beside
+     their float32 times of phase 12;
+ 17. sharded-512: ``make_sharded_step(use_pallas=True)`` on
+     ``make_mesh(4, devices=[cuda:0] * 4)``, a packed 512^3 volume as 4
+     X-slabs of 128 x 512 x 512: frames 0-2 teacher-forced from the
+     single-device state (pose, volume, planes, model vertices, valid mask
+     bit-identical; normals < 5e-3 with under 1% of pixels over 1e-4),
+     then the orbit free from a fresh state (pose error <= 5 mm and within
+     2 mm of box-512's final position; K1 and K3 launched, K4, K5 and K6
+     four times a step, no plain version, no host synchronisation in one
+     more step), its ms/frame and one profiled step's device time and
+     launches beside box-512's; then the XLA path on 4 slabs at 480^3:
+     frame 0's integrate bit-identical to the single-device one, frames 1
+     and 2 tracked (pose within 2.5 mm, half a frame's motion);
+ 18. building: ``scan_building`` at ``Config()`` over two rooms (phase
+     15's 32 known poses each) with no mesh and on the 4-slab mesh of this
+     card (the sharded route and ``fit_cuboids_sharded``), each into
+     ``build/chip_smoke/building_<route>``, with tests/test_building.py's
+     end-to-end assertions; both routes finish the same rooms with the
+     same wall connections and place them within 2 mm (``run_building``
+     derives the bound); the host seconds of each phase.
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
@@ -144,7 +173,9 @@ within one run on the card.
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
 path's run: the scan's for the kernel path, the timed xla-480 pass for
-K2, the dense-512 run for K7 and K8); the last line is ``{"ok": true,
+K2, the dense-512 run for K7 and K8; ``launches_sharded``: the free
+sharded-512 run's; the rows ``...@bf16``: K4 and K5 on box-512-bf16's
+timed pass, K7 in its oracle run); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -180,7 +211,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 QUEUE_CYCLES = 50_000_000  # ~25 ms of device clock: cuda_ms's head start for the host
 CHUNK_VOXELS = 8 * 8 * 128
 TILE_BYTES = 16 * 16 * 4  # one chunk's planes tile
-LAYOUTS = {torch.int32: "packed", torch.float32: "float32"}
+LAYOUTS = {torch.int32: "packed", torch.float32: "float32", torch.bfloat16: "bfloat16"}
+TAGS = {torch.int32: "", torch.float32: "-f32", torch.bfloat16: "-bf16"}  # box-512's cell names
 SMALL_CAM = (160, 120, 131.25, 131.25, 79.5, 59.5)  # the reference tests' 160x120 camera
 SMALL_K6 = "raycast_tiles@160x120"  # K6 at SMALL_CAM: 30 tiles, 384 candidates a tile
 PACKED_K7 = f"planes_extract@box-{RES}"  # K7 on box-512's packed volume after its warm orbit
@@ -188,8 +220,8 @@ PACKED_K7 = f"planes_extract@box-{RES}"  # K7 on box-512's packed volume after i
 
 def chunk_bytes(data) -> int:
     """Bytes of one (8, 8, 128) chunk of the volume's layout: 4 a voxel
-    packed, 8 float32."""
-    return CHUNK_VOXELS * (4 if data.dim() == 3 else 8)
+    packed and bfloat16, 8 float32."""
+    return CHUNK_VOXELS * (4 if data.dim() == 3 else 2 * data.element_size())
 
 
 def mark(phase: int, t_start: float) -> None:
@@ -592,6 +624,8 @@ def compare_stream(st, depth, intr):
     close = (kt - qt).abs() <= (1.0 / 32767.0 if kd.dim() == 3 else 1e-6) * 1.0001
     if float(close.float().mean()) < 0.999:
         fail(f"K4 ({tag}) tsdf differs by more than its bound on > 0.1% of voxels")
+    if kd.dtype == torch.bfloat16 and not (torch.equal(kd, qd) and torch.equal(kpl, qpl)):
+        fail(f"K4 ({tag}) volume or planes differ from the plain version (bit-identical required)")
     kv, qv = kpl[:, :, :, 4] > 0.5, qpl[:, :, :, 4] > 0.5
     if float((kv == qv).float().mean()) < 0.999:
         fail(f"K4 ({tag}) plane valid flags differ")
@@ -641,9 +675,11 @@ def compare_free(st, st0, depth, depth1, pose1, intr, card):
     free_carve_plain(qd, qpl, fwl, params)
     torch.cuda.synchronize()
     changed = int((_tw(kd)[1] != _tw(vol.data)[1]).sum())
-    # 4-byte words of the volume the carve changes (packed cells, or float32
-    # tsdf and weight words), compared as bits
-    words = int((kd.view(torch.int32) != vol.data.view(torch.int32)).sum())
+    # words of the volume the carve changes (packed cells, or the tsdf and
+    # weight cells of the planes, 4 or 2 bytes), compared as bits
+    word = vol.data.element_size()
+    as_bits = {4: torch.int32, 2: torch.int16}[word]
+    words = int((kd.view(as_bits) != vol.data.view(as_bits)).sum())
     if not torch.equal(kd, qd) or not torch.equal(kpl, qpl):
         fail(f"K5 ({tag}) free carve differs from its plain version")
     print(f"# K5 compare ({tag}, {src}): {n_sb} listed superblocks, {n_members} member chunks, "
@@ -668,7 +704,7 @@ def compare_free(st, st0, depth, depth1, pose1, intr, card):
     )
     # the words that do not change need not be written: the least bytes are
     # every member chunk read, the changed words and the planes tiles written
-    return 0.0, calls, bound(n_members * (chunk_bytes(vol.data) + TILE_BYTES) + 4 * words,
+    return 0.0, calls, bound(n_members * (chunk_bytes(vol.data) + TILE_BYTES) + word * words,
                              30 * CHUNK_VOXELS * n_members), n_sb, n_members
 
 
@@ -914,6 +950,7 @@ def report_profile(tag, intr, poses, frames, device, card, secs, kw, name, befor
     for key, ms, n in top:
         print(f"# profile {tag}: {ms:8.4f} ms/step {n:6.1f}x/step {key[:90]}", flush=True)
     torch.cuda.empty_cache()
+    return dev_ms, n_launch
 
 
 def host_syncs(fn):
@@ -1059,11 +1096,12 @@ def run_xla(intr, poses, frames, device, card):
 def timed_orbit(intr, poses, frames, device, card, dtype, warm_s):
     """The timed kernel-path pass of phases 6 and 7 on a fresh volume of
     ``dtype``, with its gates and launch counts; then one more step, which
-    must not make the host wait on the card. Returns (state, seconds)."""
+    must not make the host wait on the card. Returns (state, seconds,
+    the pass's launches)."""
     from housescan_tpu_torch.kinfu.pipeline import kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
-    tag = f"box-{RES}" + ("" if dtype == torch.int32 else "-f32")
+    tag = f"box-{RES}" + TAGS[dtype]
     cuda_lib.reset_counts()
     st, secs, tracked = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
@@ -1092,7 +1130,7 @@ def timed_orbit(intr, poses, frames, device, card, dtype, warm_s):
     print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
     if syncs:
         fail(f"the {tag} step made the host wait on the card at {syncs}")
-    return st, secs
+    return st, secs, launches
 
 
 def k7_oracle(st, depth, intr):
@@ -1183,14 +1221,16 @@ def compare_extract(vol, tag, card, reps=20):
     del sub_obs, cand, nxt
     voxels = nx * ny * nz
     out_bytes = k7.numel() * 4
-    # the least bytes: float32, every weight and the tsdf of the observed
-    # voxels (an unobserved voxel reads no neighbour and adds no term);
-    # packed, every cell (both values in one word); the planes written. ~30
-    # float ops an observed voxel (crossing tests, moment terms)
+    # the least bytes: float32 (bfloat16), every weight and the tsdf of the
+    # observed voxels, 4 (2) bytes each (an unobserved voxel reads no
+    # neighbour and adds no term); packed, every cell (both values in one
+    # word); the planes written. ~30 float ops an observed voxel (crossing
+    # tests, moment terms)
     packed = vol.data.dim() == 3
-    need = 4 * voxels + (0 if packed else 4 * observed) + out_bytes
+    cell = vol.data.element_size()
+    need = cell * voxels + (0 if packed else cell * observed) + out_bytes
     tight = bound(need, 30 * observed)
-    loose = bound((4 if packed else 8) * voxels + out_bytes, 30 * voxels)
+    loose = bound((cell if packed else 2 * cell) * voxels + out_bytes, 30 * voxels)
     calls = (lambda: launch_extract_kernel(vol.data, params7),
              lambda: extract_planes_plain(vol.data, params7))
     dev = kernel_device_us(calls[0], reps)
@@ -1446,14 +1486,19 @@ def time_kernels(names, calls, bounds, card, launches=None):
     return out
 
 
-def time_f32(f32, card):
-    """Phase 12 for K4 and K5 on the float32 volume."""
+def time_f32(f32, card, layout="float32"):
+    """Phase 12 for K4 and K5 on the float32 volume (phase 16: on the
+    bfloat16 one). Returns {kernel: (ms, plain ms, bound ms, bound by)}."""
+    out = {}
+    cell = f"box-{RES}" + ("-f32" if layout == "float32" else "-bf16")
     for name, (err, (k_fn, q_fn), (bound_ms, bound_by), *_) in f32.items():
-        ms = cuda_ms(k_fn, REPS[name][0])
-        plain_ms = cuda_ms(q_fn, REPS[name][1])
-        print(f"# {name} (float32 volume, box-{RES}-f32): kernel {ms:.4f} ms, plain "
+        ms = cuda_ms(k_fn, REPS[name.split("@")[0]][0])
+        plain_ms = cuda_ms(q_fn, REPS[name.split("@")[0]][1])
+        out[name] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"# {name} ({layout} volume, {cell}): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}), max abs err {err} "
               f"[{card}]", flush=True)
+    return out
 
 
 def probe(intr, poses, frames, device, card):
@@ -1715,9 +1760,9 @@ def run_rooms(intr, device, card):
         del frames
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     print(f"# rooms: scans' launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
-    # known poses skip ICP, so K3 does not run
+    # known poses skip tracking, so neither K1 (the tracker's filter) nor K3 runs
     check_counts("the room scans", launches, plain,
-                 tuple(k for k in cuda_lib.KERNEL_PATH if k != "icp_level"))
+                 tuple(k for k in cuda_lib.KERNEL_PATH if k not in ("bilateral", "icp_level")))
     torch.cuda.empty_cache()
 
     # the card's first cycle pays its libraries' first calls; the second is warm
@@ -1743,6 +1788,380 @@ def run_rooms(intr, device, card):
         fail(f"rooms: the card's optimiser or export differs from the CPU's: {gres} {cres} {gpl} {cpl}")
     if corner_err > 1e-4 or rmse_err > 1e-5 or pos_err > 1e-4 or xf_err > 1e-5:
         fail("rooms: the card's room stage differs from the CPU's beyond its bounds")
+
+
+def bf16_parity(intr, poses, frames, device, card):
+    """The full-width twin of the reference's test_bf16_parity_with_f32:
+    frame 0 fused into a fresh bfloat16 and a fresh float32 512^3 volume
+    (K5 then K4): weights identical, the tsdf within 5e-4 where |t| < 0.1
+    and within 4.5e-3 (a bfloat16 ulp at |t| <= 1) wherever observed."""
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+
+    pose0 = torch.from_numpy(poses[0]).to(device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vol = tsdf_new(RES, 3.0, 0.03, dtype=dtype, device=device)
+        tsdf_integrate_stream(vol, torch.zeros(planes_shape(RES), device=device), frames[0],
+                              pose0, intr)
+        out[dtype] = vol.data
+    a, b = out[torch.float32], out[torch.bfloat16]
+    if not torch.equal(a[1], b[1].float()):
+        fail("box-512-bf16 parity: the weights differ from the float32 volume's")
+    obs = a[1] > 0
+    diff = (a[0] - b[0].float()).abs()
+    near = obs & (a[0].abs() < 0.1)
+    n_near, d_near, d_all = int(near.sum()), float(diff[near].max()), float(diff[obs].max())
+    print(f"# box-{RES}-bf16 against float32, frame 0: weights identical, {int(obs.sum())} "
+          f"observed voxels, |dt| max {d_near:.3e} on the {n_near} with |t| < 0.1 (bound 5e-4), "
+          f"{d_all:.3e} everywhere observed (bound 4.5e-3) [{card}]", flush=True)
+    if n_near < 500 or d_near >= 5e-4 or d_all >= 4.5e-3:
+        fail("box-512-bf16 parity with float32 out of its bounds")
+
+
+def run_bf16(intr, poses, frames, device, card, f32_times, times, bounds):
+    """Phase 16, box-512-bf16: the kernel path on the bfloat16 volume. A
+    warm pass, K4 and K5 against their plain versions (bit-identical), K4
+    and K5 on the empty list, split against unsplit bit-identical, K7 as
+    the oracle of K4's planes and against its plain version
+    (bit-identical), the bfloat16 parity with float32 at full width, then
+    the timed pass with phase 6's gates; K4, K5 and K7 timed beside their
+    float32 times of phase 12. Returns (rows of the kernels line, the
+    timed pass's launches)."""
+    pose1 = torch.from_numpy(poses[1]).to(device)
+    st, st0, warm_b = warm_states(intr, poses, frames, device, torch.bfloat16)
+    b16 = {"tsdf_stream@bf16": compare_stream(st, frames[N_FRAMES], intr),
+           "tsdf_free@bf16": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr,
+                                          card)}
+    del st0
+    stream_empty_list(st, frames[N_FRAMES], intr, card)
+    from housescan_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_counts()
+    diff7, n7, v7 = k7_oracle(st, frames[N_FRAMES], intr)
+    k7_launches = cuda_lib.launch_counts["planes_extract"]  # K7's run: the oracle's extraction
+    print(f"# box-{RES}-bf16 K7 as the oracle of K4's planes after a step: {n7} listed chunks, "
+          f"{v7} valid sub-blocks, valid flags identical, fields max diff {diff7}", flush=True)
+    err7, calls7, bound7 = compare_extract(st.volume, f"box-{RES} bf16", card)
+    b16_times = time_f32(b16, card, layout="bfloat16")
+    k7_ms, k7_plain = cuda_ms(calls7[0], REPS["planes_extract"][0]), \
+        cuda_ms(calls7[1], REPS["planes_extract"][1])
+    b16_times["planes_extract@bf16"] = (k7_ms, k7_plain) + tuple(bound7)
+    errs = {name: r[0] for name, r in b16.items()}
+    errs["planes_extract@bf16"] = err7
+    del st, calls7, b16
+    torch.cuda.empty_cache()
+    same, observed = split_orbit_identical(intr, poses, frames, device, torch.bfloat16)
+    if not same:
+        fail("box-512-bf16: the orbit integrated with the free split differs from the unsplit one")
+    print(f"# box-{RES}-bf16 split vs unsplit orbit (21 integrates at the true poses): "
+          f"bit-identical, {observed} observed voxels", flush=True)
+    bf16_parity(intr, poses, frames, device, card)
+    torch.cuda.empty_cache()
+    st, _, launches = timed_orbit(intr, poses, frames, device, card, torch.bfloat16, warm_b)
+    del st
+    torch.cuda.empty_cache()
+    # beside the float32 times of this run (phase 12: K4 and K5 on
+    # box-512-f32, K7 on dense-512's float32 volume and box-512's packed one)
+    for name, (ms, plain_ms, bound_ms, bound_by) in b16_times.items():
+        base = name.split("@")[0]
+        f32 = f32_times.get(base) or (times[base][0], times[base][1], *bounds[base])
+        print(f"# {name}: kernel {ms:.4f} ms (bound {bound_ms:.4f}, {bound_by}), plain "
+              f"{plain_ms:.4f} ms; float32 kernel {f32[0]:.4f} ms (bound {f32[2]:.4f}) [{card}]",
+              flush=True)
+    rows = []
+    for name, (ms, plain_ms, bound_ms, bound_by) in b16_times.items():
+        base = name.split("@")[0]
+        src, replaces = KERNELS[base]
+        # launches: K4's and K5's in the timed bf16 pass, K7's in its oracle run
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches[base] if base != "planes_extract" else k7_launches,
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return rows, launches
+
+
+def sharded_maps_equal(sh, ref):
+    """Teacher-forced parity of the sharded step with the single-device
+    one (the reference's bound): pose, volume, planes, model vertices and
+    valid mask bit-identical; normals within 5e-3 and over 1e-4 on fewer
+    than 1% of pixels. Returns (normals' max diff, pixels over 1e-4)."""
+    from housescan_tpu_torch.kinfu import maps as mp
+
+    for what, a, b in (("pose", sh.pose, ref.pose), ("volume", sh.volume.data, ref.volume.data),
+                       ("planes", sh.planes, ref.planes),
+                       ("model vertices", sh.model_maps[mp.MD_V], ref.model_maps[mp.MD_V]),
+                       ("valid mask", sh.model_maps[mp.MD_VALID], ref.model_maps[mp.MD_VALID])):
+        if not torch.equal(a, b):
+            fail(f"sharded-512: the {what} differs from the single-device step's")
+    dn = (sh.model_maps[mp.MD_N] - ref.model_maps[mp.MD_N]).abs()
+    n_flip = int((dn.amax(0) > 1e-4).sum())
+    if float(dn.max()) >= 5e-3 or n_flip >= dn[0].numel() // 100:
+        fail(f"sharded-512: normals differ by {float(dn.max())} on {n_flip} pixels over 1e-4")
+    return float(dn.max()), n_flip
+
+
+def compare_slab(pre, ref, depth, intr, i):
+    """K5, K4 and K6 on X-slab ``i`` of ``pre`` (the sharded state cut from
+    the single-device state before a frame) at the pose the single-device
+    step ``ref`` fused the frame at, each with the slab's offset (params
+    slots 24 and 26, ``block_x0``), against their plain versions on the
+    same inputs: the free carve, then the integrate over the main list,
+    then the ray cast of the slab's candidates. Each bit-identical, and
+    the slab's volume and planes equal to the same X-range of ``ref``'s.
+    Returns {kernel: max abs error}."""
+    from housescan_tpu_torch.ops.chunk_select import build_worklist
+    from housescan_tpu_torch.ops.raycast_tiles import (
+        _ray_params, build_tile_candidates, launch_raycast_kernel, raycast_tiles_plain,
+    )
+    from housescan_tpu_torch.ops.tsdf_stream import (
+        FIELD_SAT, N_QUARTERS, _stream_params, build_depth_mips, free_carve_plain,
+        integrate_plain, launch_free_kernel, launch_stream_kernel,
+    )
+
+    vol, planes, pose = pre.volume.slab(i), pre.planes[i], ref.pose
+    nbx, nzc = RES // 8, RES // 128
+    nbl = planes.shape[0]
+    bx0 = nbl * i
+    tag = f"slab {i} of {len(pre.volume.slabs)}, block_x0 {bx0}"
+    sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+    neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+    wl, fwl = build_worklist(depth, pose, intr, vol.dims, vol.voxel_size, vol.origin, vol.trunc,
+                             sat_quarters=sat, block_x0=bx0, neg_flags=neg, free_split=True)
+    params = _stream_params(vol, pose, intr, 128.0, nbx, nzc, bx0)
+    mips = build_depth_mips(depth)
+    errs = {}
+    kd, kp = vol.data.clone(), planes.clone()
+    qd, qp = vol.data.clone(), planes.clone()
+    for name, kernel, plain in (
+        ("tsdf_free", lambda: launch_free_kernel(kd, kp, fwl, params),
+         lambda: free_carve_plain(qd, qp, fwl, params, bx0)),
+        ("tsdf_stream", lambda: launch_stream_kernel(kd, kp, wl.desc, wl.count, mips, params),
+         lambda: integrate_plain(qd, qp, wl.desc, wl.count, mips, params, nbx, nzc, bx0)),
+    ):
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+        (kt, kw), (qt, qw) = _tw(kd), _tw(qd)
+        errs[name] = max(float((kt - qt).abs().max()), float((kw - qw).abs().max()),
+                         float((kp - qp).abs().max()))
+        if not (torch.equal(kd, qd) and torch.equal(kp, qp)):
+            fail(f"sharded-{RES} {tag}: {name} differs from its plain version ({errs[name]})")
+    xs = slice(bx0 * 8, (bx0 + nbl) * 8)
+    if not (torch.equal(kd, ref.volume.data[xs]) and torch.equal(kp, ref.planes[bx0:bx0 + nbl])):
+        fail(f"sharded-{RES} {tag}: the slab differs from the single-device step's X-range")
+    n_ut = -(-intr.width // 128)
+    w_pad = n_ut * 128
+    cand = build_tile_candidates(kp, pose, intr, vol, block_x0=bx0)
+    rparams = _ray_params(pose, intr, 0.3, n_ut)
+    k6 = launch_raycast_kernel(cand, rparams, intr.height, w_pad)
+    q6 = raycast_tiles_plain(cand, rparams, intr.height, w_pad)
+    torch.cuda.synchronize()
+    errs["raycast_tiles"] = float((k6 - q6).abs().nan_to_num(float("inf")).max())
+    if not torch.equal(k6, q6):
+        fail(f"sharded-{RES} {tag}: K6 differs from its plain version ({errs['raycast_tiles']})")
+    n_hit = int((q6[0] > 0).sum())
+    print(f"# sharded-{RES} {tag}: K5 over {int(fwl.count[0])} free entries, K4 over "
+          f"{int(wl.count[0])} listed chunks, K6 over {int((cand[:, :, 9] > 0.5).sum())} "
+          f"candidates ({n_hit} pixels hit): each bit-identical to its plain version, the slab "
+          f"equal to the single-device step's X-range", flush=True)
+    return errs, int(fwl.count[0]), int(wl.count[0]), n_hit
+
+
+def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
+    """Phase 17, sharded-512: the X-slab sharded kernel-path step on a
+    4-slab mesh of this one card (4 x 128 x 512 x 512 packed slabs).
+    Frames 0-2 teacher-forced from the single-device state
+    (``sharded_maps_equal``); then the orbit runs free from a fresh state:
+    pose error <= 5 mm and within 2 mm of box-512's final position, K1
+    and K3 launched, K4, K5 and K6 four times a step, no plain version, no
+    host synchronisation in one more step; ms/frame, and one profiled
+    step's device time and launches beside box-512's. On frame 2, K5, K4
+    and K6 on each slab but the first against their plain versions at the
+    slab's shapes and offset (``compare_slab``). Then the XLA path
+    on 4 slabs at 480^3: frame 0's integrate against the single-device
+    one (bit-identical: within the reference's 1e-5), and 3 frames each tracked (the pose
+    within half a frame's motion, 2.5 mm, of the truth). Returns the free
+    run's launches and the slab comparisons' largest errors."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_integrate, tsdf_new
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.parallel import make_mesh, make_sharded_step, sharded_kinfu_init
+    from housescan_tpu_torch.parallel.sharded import (
+        sharded_state_from_single,
+        single_state_from_sharded,
+    )
+
+    mesh = make_mesh(4, devices=[device] * 4)
+    step = make_sharded_step(mesh, intr, iterations=(10, 5, 4), use_pallas=True)
+    ref = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                     dtype=torch.int32, device=device)
+    slab_errs = {}
+    for k in range(3):
+        pre = sharded_state_from_single(mesh, ref, True)
+        sh = single_state_from_sharded(step(sharded_state_from_single(mesh, ref, True), frames[k]))
+        ref = kinfu_step(ref, frames[k], intr)
+        torch.cuda.synchronize()
+        dn, n_flip = sharded_maps_equal(sh, ref)
+        print(f"# sharded-{RES} frame {k} teacher-forced (4 slabs on one card): pose, volume, "
+              f"planes, vertices, valid mask bit-identical; normals max diff {dn:.3e}, "
+              f"{n_flip} px over 1e-4", flush=True)
+        del sh
+        if k == 2:
+            # each slab but the first against the plain versions, at this
+            # frame's shapes: (128, 512, 512) packed slabs, 640x480
+            sizes = []
+            for i in range(1, mesh.size):
+                errs, *n = compare_slab(pre, ref, frames[k], intr, i)
+                sizes.append(n)
+                for name, e in errs.items():
+                    slab_errs[name] = max(slab_errs.get(name, 0.0), e)
+            if not any(n[0] for n in sizes) or not all(n[1] and n[2] for n in sizes):
+                fail(f"sharded-{RES}: a slab comparison had an empty list or no hit ({sizes})")
+        del pre
+    del ref
+    torch.cuda.empty_cache()
+
+    st = sharded_kinfu_init(mesh, intr, resolution=RES, size_m=3.0, trunc=0.03,
+                            init_pose=poses[0], use_pallas=True)
+    if st.volume.slabs[0].shape != (RES // 4, RES, RES) or st.volume.slabs[0].dtype != torch.int32:
+        fail(f"sharded-{RES}: the slabs are {tuple(st.volume.slabs[0].shape)}")
+    cuda_lib.reset_counts()
+    st = step(st, frames[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, N_FRAMES + 1):
+        st = step(st, frames[i])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    pos = st.pose[3, :3].cpu().numpy()
+    err_mm = float(np.linalg.norm(pos - poses[N_FRAMES][3, :3])) * 1e3
+    d_box = float(np.linalg.norm(pos - box_pose)) * 1e3
+    print(f"# sharded-{RES} {intr.width}x{intr.height} (4 packed slabs of "
+          f"{tuple(st.volume.slabs[0].shape)} on one card): {N_FRAMES} frames in {secs:.4f} s = "
+          f"{secs / N_FRAMES * 1000:.3f} ms/frame; pose error {err_mm:.3f} mm, {d_box:.3f} mm from "
+          f"box-{RES}'s final position [{card}]", flush=True)
+    print(f"# sharded-{RES} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    n_steps = N_FRAMES + 1
+    want = {"bilateral": n_steps, "icp_level": 3 * n_steps, "tsdf_stream": 4 * n_steps,
+            "tsdf_free": 4 * n_steps, "raycast_tiles": 4 * n_steps}
+    check_counts(f"sharded-{RES}", launches, plain, cuda_lib.KERNEL_PATH)
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"sharded-{RES}: launches {launches}, expected {want}")
+    if err_mm > POSE_BUDGET_MM or d_box > 2.0:
+        fail(f"sharded-{RES}: pose error {err_mm:.3f} mm, {d_box:.3f} mm from box-{RES}'s")
+    _, syncs = host_syncs(lambda: step(st, frames[N_FRAMES]))
+    print(f"# sharded-{RES}: one more step made {len(syncs)} host synchronisations {syncs}",
+          flush=True)
+    if syncs:
+        fail(f"the sharded-{RES} step made the host wait on the card at {syncs}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(st, frames[N_FRAMES])
+        torch.cuda.synchronize()
+    dev = device_us(prof, 1)
+    dev_ms = sum(v[0] for v in dev.values()) / 1000.0
+    n_launch = sum(v[1] for v in dev.values())
+    print(f"# profile sharded-{RES}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
+          f"launches/step; box-{RES} {box_profile[0]:.3f} ms in {box_profile[1]:.0f} (phase 13) "
+          f"[{card}]", flush=True)
+    del st
+    torch.cuda.empty_cache()
+
+    # the XLA path on 4 slabs at 480^3
+    xstep = make_sharded_step(mesh, intr, iterations=(10, 5, 4), use_pallas=False)
+    xs = sharded_kinfu_init(mesh, intr, resolution=XLA_RES, size_m=3.0, trunc=0.03,
+                            init_pose=poses[0])
+    xs = xstep(xs, frames[0])
+    single = tsdf_integrate(tsdf_new(XLA_RES, 3.0, 0.03, device=device), frames[0],
+                            torch.from_numpy(poses[0]).to(device), intr)
+    got = xs.volume.gather()
+    dt = float((got.data[0] - single.data[0]).abs().max())
+    # the reference's bound is 1e-5 (its slab-local origins); the
+    # port's slabs take the whole volume's voxel centres: bit-identical
+    if not torch.equal(got.data, single.data):
+        fail(f"sharded-xla-{XLA_RES}: frame 0's integrate differs from the single-device one "
+             f"(tsdf {dt})")
+    del got, single
+    errs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in (1, 2):
+        xs = xstep(xs, frames[k])
+        errs.append(float(np.linalg.norm(xs.pose[3, :3].cpu().numpy() - poses[k][3, :3])) * 1e3)
+    secs_x = time.perf_counter() - t0
+    print(f"# sharded-xla-{XLA_RES} (4 float32 slabs on one card): frame 0 integrate against "
+          f"the single-device one: bit-identical (tsdf max diff {dt:.3e}); frames 1-2 pose "
+          f"error {[round(e, 4) for e in errs]} mm, {secs_x / 2 * 1000:.1f} ms/frame [{card}]",
+          flush=True)
+    if max(errs) > 2.5:
+        fail(f"sharded-xla-{XLA_RES}: a frame was not tracked (pose errors {errs} mm)")
+    del xs
+    torch.cuda.empty_cache()
+    return launches, slab_errs
+
+
+def run_building(intr, device, card):
+    """Phase 18, building: ``scan_building`` at ``Config()`` over two
+    rooms (512^3, 640x480, phase 15's 32 known poses each), once with no
+    mesh (each room through ``scan_to_room_dir``, float32) and once on the
+    4-slab mesh of this card (the sharded route, packed, and
+    ``fit_cuboids_sharded``); tests/test_building.py's end-to-end
+    assertions on both, the same rooms finished with the same wall
+    connections, and the placed rooms' corner means within 2 mm: the two
+    volumes differ by the packed layout's rounding (a step of 0.9 um of
+    signed distance), which can move a zero crossing's voxel and so the
+    sampled cloud RANSAC fits, but not a wall's fitted offset by more than
+    a third of a 5.9 mm voxel. Prints each phase's host seconds."""
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.config import Config
+    from housescan_tpu_torch.kinfu.building import RoomScan, scan_building
+    from housescan_tpu_torch.kinfu.synthetic import furnished_room, render_depth_stream
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.parallel import make_mesh
+
+    half, boxes = furnished_room()
+    rooms = []
+    for ri in range(2):
+        poses = room_poses(ri)
+        frames = render_depth_stream(intr, poses, half, boxes, seed=ri, device=device).cpu().numpy()
+        rooms.append(RoomScan(name=f"room{ri}", stream=DepthStream(frames=frames, intrinsics=intr),
+                              init_pose=poses[0], known_poses=poses))
+    out = {}
+    for route, mesh in (("single", None), ("sharded", make_mesh(4, devices=[device] * 4))):
+        d = os.path.join(OUT, f"building_{route}")
+        shutil.rmtree(d, ignore_errors=True)
+        timings = {}
+        cuda_lib.reset_counts()
+        scene, fitted, bdir = scan_building(rooms, d, config=Config(), mesh=mesh, timings=timings)
+        launches = dict(cuda_lib.launch_counts)
+        bc = json.loads((bdir / "building_checkpoint.json").read_text())
+        print(f"# building ({route}): host seconds " + " ".join(f"{k} {v:.4f}" for k, v in
+                                                                timings.items())
+              + f"; fit rmse {bc['fit_rmse']}, {bc['n_wall_connections']} wall connections, "
+              f"optimiser {bc['optimize']}; launches {json.dumps(launches)} [{card}]", flush=True)
+        if len(scene.rooms) != 2 or len(fitted) != 2 or bc["rooms_done"] != ["room0", "room1"]:
+            fail(f"building ({route}): {len(scene.rooms)} rooms, done {bc['rooms_done']}")
+        for r in rooms:
+            for f in ("cloud_downsampled.pcd", "planes.txt", "trajectory.npz"):
+                if not (bdir / r.name / f).exists():
+                    fail(f"building ({route}): {r.name}/{f} missing")
+        if len(sorted((bdir / "xf").glob("*.xf"))) != 2 or any(len(r.planes) < 2 for r in fitted):
+            fail(f"building ({route}): .xf files or fitted planes missing")
+        want = ("tsdf_stream", "tsdf_free", "raycast_tiles")
+        if any(launches[k] == 0 for k in want) or any(cuda_lib.plain_counts.values()):
+            fail(f"building ({route}): the fusion kernels did not run on the card")
+        out[route] = (bc, [r.corner_mean() for r in fitted])
+    (bs, ms), (bh, mh) = out["single"], out["sharded"]
+    d_pos = max(float(np.abs(a - b).max()) for a, b in zip(ms, mh)) * 1e3
+    print(f"# building: the sharded route against the single-device one: placed corner means "
+          f"within {d_pos:.4f} mm (bound 2 mm), wall connections {bs['n_wall_connections']} / "
+          f"{bh['n_wall_connections']} [{card}]", flush=True)
+    if bs["rooms_done"] != bh["rooms_done"] or bs["n_wall_connections"] != bh["n_wall_connections"] \
+            or bs["n_wall_connections"] < 1 or d_pos > 2.0:
+        fail("building: the sharded route's building differs from the single-device one's")
 
 
 def main() -> None:
@@ -1785,7 +2204,8 @@ def main() -> None:
     mark(5, t_start)
 
     # 6. the timed main-path run, with launch counts
-    st, secs = timed_orbit(intr, poses, frames, device, card, torch.int32, warm_s)
+    st, secs, _ = timed_orbit(intr, poses, frames, device, card, torch.int32, warm_s)
+    box_pose = st.pose[3, :3].cpu().numpy()
     del st
     torch.cuda.empty_cache()
     mark(6, t_start)
@@ -1802,7 +2222,7 @@ def main() -> None:
           f"{v7} valid sub-blocks, valid flags identical, fields max diff {diff7}", flush=True)
     del st
     torch.cuda.empty_cache()
-    st, secs_f = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
+    st, secs_f, _ = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
     del st
     torch.cuda.empty_cache()
     mark(7, t_start)
@@ -1847,7 +2267,7 @@ def main() -> None:
                      "launches": path_launches[name], "max_abs_err": errs[name],
                      "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
-    time_f32(f32, card)
+    f32_times = time_f32(f32, card)
     print(f"# sizes: K4 {sizes['n_listed']} listed chunks (packed), {f32['tsdf_stream'][3]} "
           f"(float32); K5 {sizes['n_sb']} superblocks / {sizes['n_members']} member chunks "
           f"(packed), {f32['tsdf_free'][3]} / {f32['tsdf_free'][4]} (float32)", flush=True)
@@ -1856,8 +2276,9 @@ def main() -> None:
     mark(12, t_start)
 
     # 13. where the device time goes, on each path
-    for (tag, kw, name, before), secs_ in zip(PROFILES, (secs, secs_f, xla["secs"])):
-        report_profile(tag, intr, poses, frames, device, card, secs_, kw, name, before)
+    box_profile = [report_profile(tag, intr, poses, frames, device, card, secs_, kw, name, before)
+                   for (tag, kw, name, before), secs_ in zip(PROFILES, (secs, secs_f, xla["secs"]))
+                   ][0]
     mark(13, t_start)
 
     # 14. the curved world and the noisy, quantised world on the kernel path
@@ -1867,6 +2288,23 @@ def main() -> None:
     # 15. two scanned rooms through the room stage, on the card and the CPU
     run_rooms(intr, device, card)
     mark(15, t_start)
+
+    # 16. box-512-bf16: the kernel path on the bfloat16 volume
+    rows += run_bf16(intr, poses, frames, device, card, f32_times, times, bounds)[0]
+    mark(16, t_start)
+
+    # 17. sharded-512: the X-slab sharded step, 4 slabs on this card; the XLA path at 480^3
+    sharded, slab_errs = run_sharded(intr, poses, frames, device, card, box_pose, box_profile)
+    for row in rows:
+        if "@" not in row["name"]:
+            row["launches_sharded"] = sharded[row["name"]]
+        if row["name"] in slab_errs:
+            row["max_abs_err_slab"] = slab_errs[row["name"]]
+    mark(17, t_start)
+
+    # 18. building: scan_building at Config() on two rooms, without and with the mesh
+    run_building(intr, device, card)
+    mark(18, t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,7 @@
 // repeat those versions' arithmetic operation for operation.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,8 +58,12 @@ __device__ __forceinline__ int hs_pack(float t, float w) {
 //   HsPacked: the packed (X, Y, Z) int32 grid;
 //   HsPlanar<float>: the (2, X, Y, Z) float32 array, tsdf at data[0] and
 //   weight at data[1], X * Y * Z cells further on (a 64-bit offset: at
-//   1024^3, 2 X Y Z overflows an int). A bfloat16 volume is
-//   HsPlanar<__nv_bfloat16> with its two conversions (not ported).
+//   1024^3, 2 X Y Z overflows an int);
+//   HsPlanar<__nv_bfloat16>: the same array in bfloat16, read exactly as
+//   float32 and stored rounded to nearest even (__float2bfloat16_rn, as
+//   the plain version's .to(torch.bfloat16) and the reference's
+//   astype(jnp.bfloat16)). Weights are small integers, exact in bf16.
+// ``Cell`` is a store's element type.
 //
 // A chunk of 8 x 8 x 128 cells can also be staged in shared memory (K4):
 // kPlanes planes of 64 z-rows, each row one bulk copy from ``plane_ptr``
@@ -66,12 +71,16 @@ __device__ __forceinline__ int hs_pack(float t, float w) {
 // fit's warps, which read 4 rows x 8 z at once, hit 32 distinct banks);
 // the staged cell o = (ix * 8 + iy) * HS_STAGE_ROW + z is read with
 // ``staged_load``, and ``store_staged`` writes a cell to the volume and
-// to the staged copy alike.
+// to the staged copy alike. With 2-byte cells a row is 272 bytes (both
+// the 256-byte copy and the stride multiples of 16, as a bulk copy
+// needs), and the fit's 4 rows x 8 z fall on banks 4 apart: 16 distinct
+// banks, two lanes a word, still no conflict.
 enum { HS_LAYOUT_PACKED = 0, HS_LAYOUT_F32 = 1, HS_LAYOUT_BF16 = 2 };
 #define HS_STAGE_ROW 136
 #define HS_STAGE_PLANE (64 * HS_STAGE_ROW)
 
 struct HsPacked {
+  using Cell = int;
   static constexpr int kPlanes = 1;
   static constexpr int kCellBytes = 4;
   int* v;
@@ -101,13 +110,19 @@ struct HsPacked {
 };
 
 __device__ __forceinline__ float hs_to_f32(float x) { return x; }
+__device__ __forceinline__ float hs_to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T hs_from_f32(float x);
 template <>
 __device__ __forceinline__ float hs_from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 hs_from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 template <typename T>
 struct HsPlanar {
+  using Cell = T;
   static constexpr int kPlanes = 2;
   static constexpr int kCellBytes = (int)sizeof(T);
   T* v;

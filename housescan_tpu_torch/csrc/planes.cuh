@@ -23,16 +23,18 @@
 #define HS_NSUB 16
 #define HS_NMOM 19
 
-// A chunk's tsdf and weight planes in shared memory as floats,
-// t[(ix * 8 + iy) * zs + z] (zs: a staged z-row's stride).
+// A chunk's tsdf and weight planes in shared memory as float32 or
+// bfloat16 cells, t[(ix * 8 + iy) * zs + z] (zs: a staged z-row's
+// stride), read as floats.
+template <typename T>
 struct HsSmemChunk {
-  const float* t;
-  const float* w;
+  const T* t;
+  const T* w;
   int zs;
   __device__ __forceinline__ void operator()(int ix, int iy, int z, float& tv, float& wv) const {
     const int o = (ix * 8 + iy) * zs + z;
-    tv = t[o];
-    wv = w[o];
+    tv = hs_to_f32(t[o]);
+    wv = hs_to_f32(w[o]);
   }
 };
 

@@ -4,7 +4,7 @@
 // the plain version.
 //
 // Bound: device-memory bytes. The function needs every weight (4 bytes a
-// voxel), the tsdf of the observed voxels only (an unobserved voxel reads
+// voxel; bfloat16 2), the tsdf of the observed voxels only (an unobserved voxel reads
 // no neighbour and adds no term, and as a neighbour its weight 0 rules the
 // crossing out) and the (16, 16) planes tile of each chunk written; a
 // packed cell holds both values in its 4 bytes. The fit is ~30 float
@@ -54,23 +54,32 @@
 #define PE_BLOCKS_SM 2                // resident blocks an SM, by registers and the ring
 #define PE_ROW HS_STAGE_ROW           // cells a staged z-row (128 and padding)
 #define PE_PLANE (64 * PE_ROW)        // a staged plane, in cells
-#define PE_ROW_BYTES (128 * 4)        // a z-row's bulk copy
 #define PE_TILE (HS_N_FIELDS * HS_NSUB)
 
-// The ring's buffers (one a chunk) and the dynamic shared memory: float32
-// keeps one more plane for the tsdf of the chunk being fitted; a block
-// takes at most half the SM's shared memory.
+// The ring's buffers (one a chunk) and the dynamic shared memory, in the
+// store's cells: the (2, X, Y, Z) layouts keep one more plane for the
+// tsdf of the chunk being fitted; a block takes at most half the SM's
+// shared memory. kRowBytes: a z-row's bulk copy (512 bytes; bfloat16 256,
+// its staged row 272, both multiples of 16).
 template <class Store>
 struct PeRing {
+  using Cell = typename Store::Cell;
   static constexpr int kBufs = Store::kPlanes == 2 ? 2 : 3;
-  static constexpr int kSmem = (kBufs + (Store::kPlanes == 2 ? 1 : 0)) * PE_PLANE * 4;
+  static constexpr int kRowBytes = 128 * (int)sizeof(Cell);
+  static constexpr int kSmem =
+      (kBufs + (Store::kPlanes == 2 ? 1 : 0)) * PE_PLANE * (int)sizeof(Cell);
 };
 
 // Whether any of the 4 staged cells from ``o`` is observed (weight > 0):
-// float32 stages the weight plane, packed the cells.
+// the (2, X, Y, Z) layouts stage the weight plane, packed the cells.
 template <class Store>
-__device__ __forceinline__ bool pe_observed4(const float* buf, int o) {
-  if constexpr (Store::kPlanes == 2) {
+__device__ __forceinline__ bool pe_observed4(const typename Store::Cell* buf, int o) {
+  if constexpr (Store::kPlanes == 2 && sizeof(typename Store::Cell) == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(buf + o);
+    const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(&v);
+    return __bfloat162float(w[0]) > 0.0f || __bfloat162float(w[1]) > 0.0f ||
+           __bfloat162float(w[2]) > 0.0f || __bfloat162float(w[3]) > 0.0f;
+  } else if constexpr (Store::kPlanes == 2) {
     const float4 w = *reinterpret_cast<const float4*>(buf + o);
     return w.x > 0.0f || w.y > 0.0f || w.z > 0.0f || w.w > 0.0f;
   } else {
@@ -117,15 +126,17 @@ __device__ __forceinline__ size_t pe_row_cell(int chunk, int r, int nby, int nzc
 // arrives expecting the plane's bytes.
 template <class Store>
 __device__ __forceinline__ void pe_stage(const Store& vol, int chunk, int nby, int nzc, int ny,
-                                         int nz, float* dst, uint64_t* bar, int tid) {
-  if (tid == 0) hs_mbar_expect_tx(bar, 64 * PE_ROW_BYTES);
+                                         int nz, typename Store::Cell* dst, uint64_t* bar,
+                                         int tid) {
+  constexpr int kRowBytes = PeRing<Store>::kRowBytes;
+  if (tid == 0) hs_mbar_expect_tx(bar, 64 * kRowBytes);
   const int lane = tid & 31;
   if (lane < 64 / PE_WARPS) {
     const int r = (tid >> 5) * (64 / PE_WARPS) + lane;
     hs_fence_proxy_async();
     hs_bulk_load(dst + r * PE_ROW,
                  vol.plane_ptr(pe_row_cell(chunk, r, nby, nzc, ny, nz), Store::kPlanes - 1),
-                 PE_ROW_BYTES, bar);
+                 kRowBytes, bar);
   }
 }
 
@@ -136,8 +147,10 @@ template <class Store>
 __global__ void __launch_bounds__(PE_THREADS, PE_BLOCKS_SM)
 planes_extract_kernel(Store vol, float* __restrict__ planes, int ny, int nz, int n_chunks,
                       const float* __restrict__ params, int* __restrict__ next_chunk) {
+  using Cell = typename Store::Cell;
   constexpr int NB = PeRing<Store>::kBufs;
-  extern __shared__ __align__(128) float s_buf[];  // NB staged planes (+ the tsdf plane)
+  extern __shared__ __align__(128) unsigned char s_raw[];  // NB staged planes (+ the tsdf plane)
+  Cell* const s_buf = reinterpret_cast<Cell*>(s_raw);
   __shared__ __align__(8) uint64_t s_bar[NB];
   __shared__ int s_item[NB];  // the chunk in each buffer (n_chunks or more: none)
   __shared__ int s_next[2];   // the chunk item t's release stages, at t & 1
@@ -149,7 +162,7 @@ planes_extract_kernel(Store vol, float* __restrict__ planes, int ny, int nz, int
   const int nby = ny / 8, nzc = nz / 128;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grid = gridDim.x;
-  float* s_t = s_buf + NB * PE_PLANE;  // float32: the tsdf of the observed z-segments
+  Cell* s_t = s_buf + NB * PE_PLANE;  // (2, X, Y, Z): the tsdf of the observed z-segments
   // thread 0: the claim that item t + 1's release will stage, taken one
   // item early so that the counter's latency is hidden
   int pending = 0;
@@ -177,7 +190,7 @@ planes_extract_kernel(Store vol, float* __restrict__ planes, int ny, int nz, int
       s_next[t & 1] = pending;
       pending = NB * grid + atomicAdd(next_chunk, 1);
     }
-    const float* buf = s_buf + b * PE_PLANE;
+    const Cell* buf = s_buf + b * PE_PLANE;
     hs_mbar_wait(&s_bar[b], (t / NB) & 1);
 
     // 1. warp w tests sub-blocks w + PE_WARPS q; lane l reads rows (l >> 1)
@@ -211,9 +224,14 @@ planes_extract_kernel(Store vol, float* __restrict__ planes, int ny, int nz, int
           for (int k = 0; k < 4; ++k) {
             if (!((seg >> (4 * q + k)) & 1u)) continue;
             const int r = (lane >> 1) + 16 * k, z = 8 * (warp + PE_WARPS * q) + 4 * (lane & 1);
-            const float4 v = __ldg(reinterpret_cast<const float4*>(
-                vol.v + pe_row_cell(chunk, r, nby, nzc, ny, nz) + z));
-            *reinterpret_cast<float4*>(s_t + r * PE_ROW + z) = v;
+            const Cell* src = vol.v + pe_row_cell(chunk, r, nby, nzc, ny, nz) + z;
+            if constexpr (sizeof(Cell) == 2) {  // bfloat16: 4 cells, 8 bytes
+              *reinterpret_cast<uint2*>(s_t + r * PE_ROW + z) =
+                  __ldg(reinterpret_cast<const uint2*>(src));
+            } else {
+              *reinterpret_cast<float4*>(s_t + r * PE_ROW + z) =
+                  __ldg(reinterpret_cast<const float4*>(src));
+            }
           }
         __syncthreads();
       }
@@ -224,7 +242,7 @@ planes_extract_kernel(Store vol, float* __restrict__ planes, int ny, int nz, int
         if (observed[q]) {
           double acc[HS_NMOM];
           if constexpr (Store::kPlanes == 2) {
-            const HsSmemChunk tw{s_t, buf, PE_ROW};
+            const HsSmemChunk<Cell> tw{s_t, buf, PE_ROW};
             terms = pe_has_terms(tw, sb, lane);
             if (terms) hs_subblock_moments_warp(tw, sb, lane, 127, acc);
           } else {
@@ -286,8 +304,9 @@ static int pe_launch(Store vol, float* planes, int n_chunks, int ny, int nz, con
   return (int)cudaGetLastError();
 }
 
-// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid) or
-// HS_LAYOUT_F32 (vol is the (2, nx, ny, nz) float32 array); planes is the
+// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid),
+// HS_LAYOUT_F32 or HS_LAYOUT_BF16 (vol is the (2, nx, ny, nz) float32 or
+// bfloat16 array); planes is the
 // (nx / 8, ny / 8, nz / 128, 16, 16) output, every element written;
 // next_chunk: one int of scratch (the claim counter, zeroed here); grid:
 // the persistent grid (at most the resident blocks an SM times the SMs).
@@ -302,13 +321,18 @@ extern "C" int hs_planes_extract(void* vol, int layout, float* planes, int nx, i
   if (layout == HS_LAYOUT_F32)
     return pe_launch(HsPlanar<float>{(float*)vol, (size_t)nx * ny * nz}, planes, n_chunks, ny, nz,
                      params, next_chunk, grid, st);
+  if (layout == HS_LAYOUT_BF16)
+    return pe_launch(HsPlanar<__nv_bfloat16>{(__nv_bfloat16*)vol, (size_t)nx * ny * nz}, planes,
+                     n_chunks, ny, nz, params, next_chunk, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks an SM: out[0] packed, out[1] float32.
+// Resident blocks an SM: out[0] packed, out[1] float32, out[2] bfloat16.
 extern "C" int hs_planes_extract_occupancy(int, int* out) {
-  const int e = hs_occupancy(planes_extract_kernel<HsPacked>, PE_THREADS,
-                             PeRing<HsPacked>::kSmem, out);
-  return e ? e : hs_occupancy(planes_extract_kernel<HsPlanar<float>>, PE_THREADS,
-                              PeRing<HsPlanar<float>>::kSmem, out + 1);
+  int e = hs_occupancy(planes_extract_kernel<HsPacked>, PE_THREADS, PeRing<HsPacked>::kSmem, out);
+  if (!e)
+    e = hs_occupancy(planes_extract_kernel<HsPlanar<float>>, PE_THREADS,
+                     PeRing<HsPlanar<float>>::kSmem, out + 1);
+  return e ? e : hs_occupancy(planes_extract_kernel<HsPlanar<__nv_bfloat16>>, PE_THREADS,
+                              PeRing<HsPlanar<__nv_bfloat16>>::kSmem, out + 2);
 }

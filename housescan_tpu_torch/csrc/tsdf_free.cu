@@ -5,7 +5,7 @@
 // (free_carve_plain) and ops/chunk_select.py for the free work list.
 //
 // Bound: device-memory bytes. Each member chunk's 8192 voxels are read
-// once (packed: 32 KB; float32: 64 KB), the words the carve changes are
+// once (packed and bfloat16: 32 KB; float32: 64 KB), the words the carve changes are
 // written once (a word that keeps its value need not be: on the orbit
 // under 1% of them change) and its (16, 16) planes tile is written (1
 // KB); the arithmetic is ~30 float operations a voxel, below the bytes on
@@ -40,7 +40,9 @@
 // wadd, max_weight), tnew = (told wold + wadd) / max(wold + wadd, 1) only
 // where in view (elsewhere tcur = told and the division is skipped), the
 // store of the volume's layout (the packed write rounds half to even;
-// float32 stores as is). Per z-quarter, min observed t, min observed w
+// float32 stores as is, bfloat16 rounds to nearest even). An X-slab of a
+// sharded volume takes world x from ci + params[26] (its first global X
+// block); its data, planes and free list stay slab-local. Per z-quarter, min observed t, min observed w
 // and max w (warp reductions: exact in any order) give the saturation
 // flag; the tile is zeros with the four flags in field 11, columns 0-3,
 // warp q writing the tile's entries q, q + 4, ... . Eligibility (no
@@ -111,6 +113,41 @@ struct TfQuad<HsPlanar<float>> {
   }
 };
 
+// bfloat16: four cells are 8 bytes a plane, loaded and stored as one
+// 8-byte vector (a warp instruction still covers 4 row segments of 64
+// bytes; the lane-to-cell map is the other layouts').
+template <>
+struct TfQuad<HsPlanar<__nv_bfloat16>> {
+  static constexpr int kPlanes = 2;
+  uint2 t2, w2;
+  bool t_changed, w_changed;
+  static __device__ __forceinline__ __nv_bfloat16 cell(const uint2& v, int k) {
+    return reinterpret_cast<const __nv_bfloat16*>(&v)[k];
+  }
+  __device__ __forceinline__ void load(const HsPlanar<__nv_bfloat16>& s, size_t a) {
+    t2 = *reinterpret_cast<const uint2*>(s.v + a);
+    w2 = *reinterpret_cast<const uint2*>(s.v + s.plane + a);
+    t_changed = w_changed = false;
+  }
+  __device__ __forceinline__ void get(int k, float& t, float& w) const {
+    t = __bfloat162float(cell(t2, k));
+    w = __bfloat162float(cell(w2, k));
+  }
+  __device__ __forceinline__ void set(int k, float t, float w) {
+    const __nv_bfloat16 tb = __float2bfloat16_rn(t), wb = __float2bfloat16_rn(w);
+    __nv_bfloat16* tc = reinterpret_cast<__nv_bfloat16*>(&t2) + k;
+    __nv_bfloat16* wc = reinterpret_cast<__nv_bfloat16*>(&w2) + k;
+    t_changed |= __bfloat16_as_ushort(tb) != __bfloat16_as_ushort(*tc);
+    w_changed |= __bfloat16_as_ushort(wb) != __bfloat16_as_ushort(*wc);
+    *tc = tb;
+    *wc = wb;
+  }
+  __device__ __forceinline__ void store(const HsPlanar<__nv_bfloat16>& s, size_t a) const {
+    if (t_changed) *reinterpret_cast<uint2*>(s.v + a) = t2;
+    if (w_changed) *reinterpret_cast<uint2*>(s.v + s.plane + a) = w2;
+  }
+};
+
 template <class Store>
 __global__ void __launch_bounds__(TF_THREADS)
 tsdf_free_kernel(Store vol, float* __restrict__ planes,
@@ -128,6 +165,7 @@ tsdf_free_kernel(Store vol, float* __restrict__ planes,
   const float fx = p[12], fy = p[13], ncx = -p[14], ncy = -p[15];
   const float kx = p[22] - 1.0f - p[14], ky = p[23] - 1.0f - p[15];
   const float max_weight = p[21];
+  const int bx0 = (int)p[26];  // a slab's first global X block: world x only
 
   for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
     const int e = i >> 4, slot = i & 15;
@@ -153,7 +191,7 @@ tsdf_free_kernel(Store vol, float* __restrict__ planes,
 #pragma unroll
       for (int jj = 0; jj < kRows; ++jj) {
         const int j = j0 + jj;
-        const HsAxisTerms ax = hs_voxel_axis(p, 0, ci * 8, j >> 1);
+        const HsAxisTerms ax = hs_voxel_axis(p, 0, (ci + bx0) * 8, j >> 1);
         const HsAxisTerms& y = ay[j & 1];
         const float sx = ax.c0 + y.c0, sy = ax.c1 + y.c1, sz = ax.c2 + y.c2;
 #pragma unroll
@@ -204,9 +242,10 @@ static int tf_launch(Store vol, float* planes, const int* bitmap, const int* cou
   return (int)cudaGetLastError();
 }
 
-// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid) or
-// HS_LAYOUT_F32 (vol is the (2, nx, ny, nz) float32 array); grid: the
-// persistent grid (ops/tsdf_stream.stream_grid over 16 items an entry).
+// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid),
+// HS_LAYOUT_F32 or HS_LAYOUT_BF16 (vol is the (2, nx, ny, nz) float32 or
+// bfloat16 array); grid: the persistent grid (ops/tsdf_stream.stream_grid
+// over 16 items an entry).
 extern "C" int hs_tsdf_free(void* vol, int layout, float* planes, const int* bitmap,
                             const int* count, const int* bi, const int* bj, const int* bk,
                             int grid, int nx, int ny, int nz, const float* params, float sat_w,
@@ -219,11 +258,15 @@ extern "C" int hs_tsdf_free(void* vol, int layout, float* planes, const int* bit
   if (layout == HS_LAYOUT_F32)
     return tf_launch(HsPlanar<float>{(float*)vol, (size_t)nx * ny * nz}, planes, bitmap, count,
                      bi, bj, bk, grid, ny, nz, params, sat_w, st);
+  if (layout == HS_LAYOUT_BF16)
+    return tf_launch(HsPlanar<__nv_bfloat16>{(__nv_bfloat16*)vol, (size_t)nx * ny * nz}, planes,
+                     bitmap, count, bi, bj, bk, grid, ny, nz, params, sat_w, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks an SM: out[0] packed, out[1] float32.
+// Resident blocks an SM: out[0] packed, out[1] float32, out[2] bfloat16.
 extern "C" int hs_tsdf_free_occupancy(int, int* out) {
-  const int e = hs_occupancy(tsdf_free_kernel<HsPacked>, TF_THREADS, 0, out);
-  return e ? e : hs_occupancy(tsdf_free_kernel<HsPlanar<float>>, TF_THREADS, 0, out + 1);
+  int e = hs_occupancy(tsdf_free_kernel<HsPacked>, TF_THREADS, 0, out);
+  if (!e) e = hs_occupancy(tsdf_free_kernel<HsPlanar<float>>, TF_THREADS, 0, out + 1);
+  return e ? e : hs_occupancy(tsdf_free_kernel<HsPlanar<__nv_bfloat16>>, TF_THREADS, 0, out + 2);
 }

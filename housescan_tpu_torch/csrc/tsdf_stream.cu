@@ -3,8 +3,8 @@
 // tsdf_integrate_stream). See housescan_tpu_torch/ops/tsdf_stream.py for
 // the plain version and the design note.
 //
-// Bound: bytes. Each listed chunk is read and written once (packed: 32 KB
-// each way, float32: 64 KB) with its 1 KB planes tile; the mips are read
+// Bound: bytes. Each listed chunk is read and written once (packed and
+// bfloat16: 32 KB each way, float32: 64 KB) with its 1 KB planes tile; the mips are read
 // once (L2-resident). The arithmetic (~60 float operations a voxel, the
 // plane fit's moments) is below that.
 //
@@ -33,11 +33,18 @@
 //   5. planes: one warp per (8, 8, 8) sub-block (planes.cuh), reading the
 //      staged copy through HsStagedChunk (the stored values: quantized when
 //      packed), written with the flags into field 11.
-// Registers: __launch_bounds__(512, 1), one block an SM on both layouts
-// (the stages take 70 KB packed, 139 KB float32), no spills.
+// Registers: __launch_bounds__(512, 1), one block an SM on every layout
+// (the stages take 70 KB packed and bfloat16, 139 KB float32), no spills.
 // The kernel is templated on the volume store (common.cuh): the packed
-// int32 grid or the float32 (2, X, Y, Z) array. One kernel, one set of
-// math.
+// int32 grid, or the (2, X, Y, Z) array in float32 or bfloat16 (2-byte
+// cells: a staged row is 272 bytes). One kernel, one set of math, float32
+// on every layout.
+//
+// An X-slab of a sharded volume (parallel/sharded.py) passes its first
+// global X block in params[26] and the global X block count in
+// params[24]: world x and the sub-block ids take ci + block_x0, while the
+// slab's data and planes are indexed by the local ci, so every float of a
+// slab is what the whole volume computes for that chunk.
 #include "common.cuh"
 #include "planes.cuh"
 
@@ -98,6 +105,7 @@ tsdf_stream_kernel(Store vol, float* __restrict__ planes,
   const int n = *count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float trunc = p[16], max_weight = p[21];
+  const int bx0 = (int)p[26];  // the slab's first global X block (0: whole volume)
   const int z = tid & 127;
 
   if (tid == 0) {
@@ -124,7 +132,7 @@ tsdf_stream_kernel(Store vol, float* __restrict__ planes,
       for (int kk = 0; kk < 16; ++kk) {
         const int xy = (tid >> 7) + 4 * kk;
         HsVoxel vc;
-        hs_voxel_coords(p, ci, cj, ck, xy >> 3, xy & 7, z, vc);
+        hs_voxel_coords(p, ci + bx0, cj, ck, xy >> 3, xy & 7, z, vc);
         if (vc.iv > 0.5f) {
           umin = fminf(umin, vc.uf);
           umax = fmaxf(umax, vc.uf);
@@ -210,7 +218,7 @@ tsdf_stream_kernel(Store vol, float* __restrict__ planes,
     for (int h = 0; h < 2; ++h) by[h] = hs_voxel_axis(p, 1, cj * 8, (tid >> 7) + 4 * h);
     float mn_t = 1.0f, mx_t = -1.0f, q_minw = TS_BIG, q_mint = 1.0f, q_maxw = -1.0f;
     for (int ix = 0; ix < 8; ++ix) {
-      const HsAxisTerms ax = hs_voxel_axis(p, 0, ci * 8, ix);
+      const HsAxisTerms ax = hs_voxel_axis(p, 0, (ci + bx0) * 8, ix);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int iy = (tid >> 7) + 4 * h;
@@ -317,10 +325,10 @@ tsdf_stream_kernel(Store vol, float* __restrict__ planes,
     // 5. planes: warp s fits sub-block s (z in [8s, 8s + 8)) from the stage
     if (s_win[3]) {
       HsFitGeom g;
-      g.ci = ci;
+      g.ci = ci + bx0;
       g.cj = cj;
       g.z_base = (float)(ck * 128);
-      g.sid_base = (((long long)ci * (int)p[24] + cj) * (int)p[25] + ck) * HS_NSUB;
+      g.sid_base = (((long long)(ci + bx0) * (int)p[24] + cj) * (int)p[25] + ck) * HS_NSUB;
       g.vs = p[17];
       g.ox = p[18];
       g.oy = p[19];
@@ -350,9 +358,9 @@ static int ts_launch(Store vol, float* planes, const int* desc, const int* count
   return (int)cudaGetLastError();
 }
 
-// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid) or
-// HS_LAYOUT_F32 (vol is the (2, nx, ny, nz) float32 array); grid: the
-// persistent grid (ops/tsdf_stream.stream_grid).
+// layout: HS_LAYOUT_PACKED (vol is the (nx, ny, nz) int32 grid),
+// HS_LAYOUT_F32 or HS_LAYOUT_BF16 (vol is the (2, nx, ny, nz) float32 or
+// bfloat16 array); grid: the persistent grid (ops/tsdf_stream.stream_grid).
 extern "C" int hs_tsdf_stream(void* vol, int layout, float* planes, const int* desc,
                               const int* count, int grid, int nx, int ny, int nz,
                               const float* mip0, int h0, int w0, const float* mip1, int h1,
@@ -371,14 +379,20 @@ extern "C" int hs_tsdf_stream(void* vol, int layout, float* planes, const int* d
   if (layout == HS_LAYOUT_F32)
     return ts_launch(HsPlanar<float>{(float*)vol, (size_t)nx * ny * nz}, planes, desc, count,
                      grid, ny, nz, mips, params, sat_w, st);
+  if (layout == HS_LAYOUT_BF16)
+    return ts_launch(HsPlanar<__nv_bfloat16>{(__nv_bfloat16*)vol, (size_t)nx * ny * nz}, planes,
+                     desc, count, grid, ny, nz, mips, params, sat_w, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks an SM: out[0] packed, out[1] float32.
+// Resident blocks an SM: out[0] packed, out[1] float32, out[2] bfloat16.
 extern "C" int hs_tsdf_stream_occupancy(int, int* out) {
-  const int e = hs_occupancy(tsdf_stream_kernel<HsPacked>, TS_THREADS,
-                             2 * ts_stage_bytes<HsPacked>(), out);
+  int e = hs_occupancy(tsdf_stream_kernel<HsPacked>, TS_THREADS,
+                       2 * ts_stage_bytes<HsPacked>(), out);
+  if (!e)
+    e = hs_occupancy(tsdf_stream_kernel<HsPlanar<float>>, TS_THREADS,
+                     2 * ts_stage_bytes<HsPlanar<float>>(), out + 1);
   return e ? e
-           : hs_occupancy(tsdf_stream_kernel<HsPlanar<float>>, TS_THREADS,
-                          2 * ts_stage_bytes<HsPlanar<float>>(), out + 1);
+           : hs_occupancy(tsdf_stream_kernel<HsPlanar<__nv_bfloat16>>, TS_THREADS,
+                          2 * ts_stage_bytes<HsPlanar<__nv_bfloat16>>(), out + 2);
 }

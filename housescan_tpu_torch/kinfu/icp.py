@@ -61,14 +61,16 @@ def _model_gradients(model_vertices: torch.Tensor, model_valid: torch.Tensor):
     return gu, gv
 
 
-def _associate(model_vertices, model_normals, model_valid, grads, u, v, window: int):
+def _associate(model_vertices, model_normals, model_valid, grads, u, v, window: int,
+               row0: int = 0):
     """Linearised projective association: the model vertex at the
     projected (u, v) is the pixel's own, moved along the gradients by
     (u - px, v - py); kept when both offsets lie within the gate (+-1.5
-    px for ``window`` 0, else ``window`` px)."""
+    px for ``window`` 0, else ``window`` px). ``row0``: the image row of
+    the maps' first row (a row-slab of the image)."""
     h, w = u.shape
     gate = 1.5 if window == 0 else float(window)
-    py = torch.arange(h, dtype=u.dtype, device=u.device)[:, None]
+    py = torch.arange(h, dtype=u.dtype, device=u.device)[:, None] + row0
     px = torch.arange(w, dtype=u.dtype, device=u.device)[None, :]
     du = u - px
     dv = v - py
@@ -80,11 +82,13 @@ def _associate(model_vertices, model_normals, model_valid, grads, u, v, window: 
 
 def _normal_equations(pose, live_vertices, live_normals, model_vertices, model_normals,
                       model_valid, model_grads, prev_pose, intr: Intrinsics, dist_threshold,
-                      angle_threshold: float, window: int = 0):
+                      angle_threshold: float, window: int = 0, row0: int = 0):
     """One Gauss-Newton iteration's 6x6 normal equations without the
     solve: (a (6, 6), b (6,), n_corr () int32, sq ()), sq the weighted
     squared-residual sum. Live maps are (h, w, 3) in the camera frame,
-    model maps (h, w, 3) in the world frame."""
+    model maps (h, w, 3) in the world frame. ``row0`` is the image row of
+    the maps' first row when they are a row-slab of the image (the sharded
+    step's fine level sums the slabs' systems)."""
     rot = pose[:3, :3]
     t = pose[3, :3]
     v_w = mm(live_vertices, rot) + t
@@ -103,7 +107,7 @@ def _normal_equations(pose, live_vertices, live_normals, model_vertices, model_n
     inb = (z > 1e-6) & (u >= 0) & (u <= intr.width - 1) & (v >= 0) & (v <= intr.height - 1)
 
     m_v, m_n, m_ok = _associate(model_vertices, model_normals, model_valid, model_grads, u, v,
-                                window)
+                                window, row0=row0)
 
     diff = v_w - m_v
     dist_ok = (diff * diff).sum(-1) < dist_threshold * dist_threshold

@@ -73,7 +73,7 @@ def kinfu_init(
 ) -> KinFuState:
     """Fresh state with every tensor on ``device``; ``dtype`` picks the
     volume layout: ``torch.float32`` (2, X, Y, Z), the reference's
-    default, or ``torch.int32`` packed."""
+    default, the same in ``torch.bfloat16``, or ``torch.int32`` packed."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
@@ -113,6 +113,61 @@ def _integrate_dispatch(volume, planes, depth, pose, intr, max_weight, use_palla
     return tsdf_integrate(volume, depth, pose, intr, max_weight=max_weight), planes
 
 
+class Track(NamedTuple):
+    """One frame's tracking verdict."""
+
+    pose: torch.Tensor  # (4, 4) the pose it fuses at: the previous one where it was dropped
+    tracked: torch.Tensor  # () bool, False where the frame was dropped
+    rmse: torch.Tensor  # () f32 ICP rmse, 0 on the first frame and at a known pose
+    corr: torch.Tensor  # () int32 ICP correspondences, likewise
+
+
+def track_frame(raw_depth, intr: Intrinsics, state, start, voxel_size, icp, levels: int = 3,
+                forced_pose=None) -> Track:
+    """Track one (H, W) depth frame against ``state``'s model maps and gate
+    it: the tracking policy of every fusion step (``kinfu_step`` and the
+    sharded step) over ``state``'s ``pose``, ``model_maps`` and
+    ``frame_index``. ``icp(live maps, model map pyramid, start, tight
+    gate) -> (pose, rmse, n_corr)`` is the path's tracker, started from
+    the pose ``start`` the model maps were rendered at. A ``forced_pose`` is taken as it is: no tracking, always
+    fused. The first frame keeps the state's pose."""
+    dev = raw_depth.device
+    if forced_pose is not None:
+        return Track(torch.as_tensor(forced_pose, dtype=torch.float32).to(dev),
+                     torch.ones((), dtype=torch.bool, device=dev),
+                     torch.zeros((), dtype=torch.float32, device=dev),
+                     torch.zeros((), dtype=torch.int32, device=dev))
+    pyr = build_pyramid(raw_depth, intr, levels=levels)
+    model_pyr = mp.build_map_pyramid(state.model_maps, levels)
+    is_first = state.frame_index == 0
+    # Adaptive tight gate: half a voxel, floored at 6 mm; the finest
+    # level's loose gate equals it, the coarser ones are 5 and 10 cm.
+    tight = torch.clamp(0.5 * voxel_size, min=0.006)
+    icp_pose, icp_rmse, icp_corr = icp(list(pyr.maps), model_pyr, start, tight)
+    new_pose = torch.where(is_first, state.pose, icp_pose)
+
+    # Tracking-loss gate: drop the frame when the correspondence set
+    # collapsed or the live view disagrees with the model (mean clipped
+    # |live - model| depth over jointly valid pixels > 0.15 m), unless the
+    # model itself was too sparse to track against (growth phase).
+    min_corr = max(32, int(0.002 * intr.width * intr.height))
+    model_valid = state.model_maps[mp.MD_VALID] > 0.5
+    both_valid = (raw_depth > 0) & model_valid
+    view_incons = torch.where(
+        both_valid,
+        torch.clamp((raw_depth - state.model_maps[mp.MD_DEPTH]).abs(), max=1.0),
+        0.0,
+    ).sum() / torch.clamp(both_valid.sum(), min=1)
+    tracked = (
+        is_first
+        | ((icp_corr >= min_corr) & (view_incons <= 0.15))
+        | (model_valid.sum() < 4 * min_corr)
+    )
+    return Track(torch.where(tracked, new_pose, state.pose), tracked,
+                 torch.where(is_first, 0.0, icp_rmse),
+                 torch.where(is_first, 0, icp_corr).to(torch.int32))
+
+
 @torch.no_grad()
 def kinfu_step(
     state: KinFuState,
@@ -143,56 +198,18 @@ def kinfu_step(
             raise ValueError("kinfu_step(use_pallas=True): needs a cubic volume tiling into "
                              "128-voxel chunks; use_pallas=False takes any volume")
     raw_depth = raw_depth.to(device=vol.data.device, dtype=torch.float32)
-    pyr = build_pyramid(raw_depth, intr, levels=levels)
-    model_pyr = mp.build_map_pyramid(state.model_maps, levels)
-    is_first = state.frame_index == 0
 
-    # Adaptive tight gate: half a voxel, floored at 6 mm; the finest
-    # level's loose gate equals it, the coarser ones are 5 and 10 cm.
-    tight = torch.clamp(0.5 * vol.voxel_size, min=0.006)
-    if dist_threshold is None:
-        dist_threshold = (tight, 0.05, 0.10)
-    dev = vol.data.device
-    if forced_pose is None:
-        icp = icp_track(
-            list(pyr.maps),
-            model_pyr,
-            state.model_pose,
-            intr,
-            iterations=iterations,
-            dist_threshold=dist_threshold,
-            angle_threshold=angle_threshold,
-            tight_threshold=tight,
-            use_pallas=use_pallas,
-        )
-        new_pose = torch.where(is_first, state.pose, icp.pose)
-        icp_rmse, icp_corr = icp.rmse, icp.n_corr
+    def icp(live, model_pyr, start, tight):
+        out = icp_track(live, model_pyr, start, intr, iterations=iterations,
+                        dist_threshold=(tight, 0.05, 0.10) if dist_threshold is None
+                        else dist_threshold,
+                        angle_threshold=angle_threshold, tight_threshold=tight,
+                        use_pallas=use_pallas)
+        return out.pose, out.rmse, out.n_corr
 
-        # Tracking-loss gate: drop the frame when the correspondence set
-        # collapsed or the live view disagrees with the model (mean
-        # clipped |live - model| depth over jointly valid pixels >
-        # 0.15 m), unless the model itself was too sparse to track
-        # against (growth phase).
-        min_corr = max(32, int(0.002 * intr.width * intr.height))
-        model_valid = state.model_maps[mp.MD_VALID] > 0.5
-        model_px = model_valid.sum()
-        both_valid = (raw_depth > 0) & model_valid
-        view_incons = torch.where(
-            both_valid,
-            torch.clamp((raw_depth - state.model_maps[mp.MD_DEPTH]).abs(), max=1.0),
-            0.0,
-        ).sum() / torch.clamp(both_valid.sum(), min=1)
-        tracked = (
-            is_first
-            | ((icp_corr >= min_corr) & (view_incons <= 0.15))
-            | (model_px < 4 * min_corr)
-        )
-    else:  # known pose: no tracking, always fuse
-        new_pose = torch.as_tensor(forced_pose, dtype=torch.float32).to(dev)
-        icp_rmse = torch.zeros((), dtype=torch.float32, device=dev)
-        icp_corr = torch.zeros((), dtype=torch.int32, device=dev)
-        tracked = torch.ones((), dtype=torch.bool, device=dev)
-    new_pose = torch.where(tracked, new_pose, state.pose)
+    tr = track_frame(raw_depth, intr, state, state.model_pose, vol.voxel_size, icp, levels,
+                     forced_pose)
+    new_pose, tracked = tr.pose, tr.tracked
     depth_eff = torch.where(tracked, raw_depth, 0.0)
 
     volume, planes = _integrate_dispatch(
@@ -212,8 +229,8 @@ def kinfu_step(
         model_maps=model_maps,
         model_pose=torch.where(tracked, new_pose, state.model_pose),
         frame_index=state.frame_index + 1,
-        last_rmse=torch.where(is_first, 0.0, icp_rmse),
-        last_corr=torch.where(is_first, 0, icp_corr).to(torch.int32),
+        last_rmse=tr.rmse,
+        last_corr=tr.corr,
         last_tracked=tracked,
     )
 
@@ -238,10 +255,35 @@ STATE_FIELDS = (
 )
 
 
+def volume_from_numpy(data: np.ndarray) -> torch.Tensor:
+    """A volume's ``data`` as a CPU tensor of its layout: packed int32,
+    float32, or bfloat16. numpy has no bfloat16 of its own: an array from
+    JAX carries the ``ml_dtypes`` one, and a bfloat16 volume read back
+    from an .npy file (either package's) is a 2-byte void array; both are
+    taken by their bits (the port does not import ``ml_dtypes``)."""
+    if data.dtype.name == "bfloat16" or (data.dtype.kind == "V" and data.dtype.itemsize == 2):
+        bits = np.ascontiguousarray(data).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    if data.dtype not in (np.int32, np.float32):
+        raise ValueError(f"a {data.dtype} volume has no layout (int32, float32 or bfloat16)")
+    return torch.from_numpy(np.array(data))
+
+
+def volume_to_numpy(data: torch.Tensor) -> np.ndarray:
+    """A volume's ``data`` as a host array: int32 and float32 as they
+    are, bfloat16 by its bits as a 2-byte void array (what numpy makes of
+    the reference's bfloat16 in an .npy file), which ``volume_from_numpy``
+    takes back."""
+    data = data.detach().cpu()
+    if data.dtype == torch.bfloat16:
+        return data.view(torch.int16).numpy().view("V2")
+    return data.numpy()
+
+
 def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
     """KinFuState from numpy arrays keyed by ``STATE_FIELDS``; e.g. the
     fields of a reference state. ``data`` keeps its layout: packed int32
-    (X, Y, Z) or float32 (2, X, Y, Z)."""
+    (X, Y, Z), or float32 or bfloat16 (2, X, Y, Z) (``volume_from_numpy``)."""
     device = torch.device(device)
     if device.type == "cuda":
         full_fp32_matmul()
@@ -249,12 +291,9 @@ def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
     def t(k, dtype):
         return torch.as_tensor(np.array(d[k]), dtype=dtype).to(device)
 
-    data = np.asarray(d["data"])
-    if data.dtype not in (np.int32, np.float32):
-        raise NotImplementedError(f"state_from_numpy: a {data.dtype} volume is not ported")
     return KinFuState(
         volume=TsdfVolume(
-            data=torch.from_numpy(np.array(data)).to(device),
+            data=volume_from_numpy(np.asarray(d["data"])).to(device),
             origin=t("origin", torch.float32),
             voxel_size=t("voxel_size", torch.float32),
             trunc=t("trunc", torch.float32),
@@ -271,11 +310,13 @@ def state_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> KinFuState:
 
 
 def state_to_numpy(state: KinFuState) -> Dict[str, np.ndarray]:
-    """Inverse of ``state_from_numpy``."""
+    """Inverse of ``state_from_numpy``; a bfloat16 volume comes as its
+    bits (``volume_to_numpy``)."""
     vals = (
-        state.volume.data, state.volume.origin, state.volume.voxel_size,
+        state.volume.origin, state.volume.voxel_size,
         state.volume.trunc, state.planes, state.pose, state.model_maps,
         state.model_pose, state.frame_index, state.last_rmse,
         state.last_corr, state.last_tracked,
     )
-    return {k: v.detach().cpu().numpy() for k, v in zip(STATE_FIELDS, vals)}
+    out = {k: v.detach().cpu().numpy() for k, v in zip(STATE_FIELDS[1:], vals)}
+    return {"data": volume_to_numpy(state.volume.data), **out}

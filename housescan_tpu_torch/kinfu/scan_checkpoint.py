@@ -2,7 +2,8 @@
 
 A port of ``housescan_tpu/kinfu/scan_checkpoint.py`` with the same file:
 one compressed .npz holding the whole ``KinFuState`` (the volume in
-either layout, packed int32 or float32, persistent planes, poses, model maps, flags), the per-frame trajectory so
+any layout: packed int32, float32, or bfloat16 by its bits as the
+reference's file holds it; persistent planes, poses, model maps, flags), the per-frame trajectory so
 far and a JSON manifest with the schema version, the next frame index,
 the intrinsics and a structural fingerprint of the state layout. The
 fingerprint string is built from the numpy dtype names, so it is the same
@@ -23,7 +24,7 @@ import torch
 from housescan_tpu_torch.geometry.transform import full_fp32_matmul
 from housescan_tpu_torch.io import host
 from housescan_tpu_torch.kinfu.camera import Intrinsics
-from housescan_tpu_torch.kinfu.pipeline import KinFuState
+from housescan_tpu_torch.kinfu.pipeline import KinFuState, volume_from_numpy, volume_to_numpy
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 
 # v1: KinFuState with a velocity field, no trajectory.
@@ -69,7 +70,7 @@ def save_scan_state(
         },
     }
     arrays = {
-        "volume_data": host(state.volume.data),
+        "volume_data": volume_to_numpy(state.volume.data),
         "volume_origin": host(state.volume.origin),
         "volume_voxel_size": host(state.volume.voxel_size),
         "volume_trunc": host(state.volume.trunc),
@@ -156,7 +157,7 @@ def load_scan_state(
         model_maps = z["model_maps"] if version >= 3 else _migrated_model_maps(z)
         state = KinFuState(
             volume=TsdfVolume(
-                data=t(z["volume_data"]),
+                data=volume_from_numpy(z["volume_data"]).to(device),
                 origin=t(z["volume_origin"]),
                 voxel_size=t(z["volume_voxel_size"]),
                 trunc=t(z["volume_trunc"]),

@@ -12,9 +12,13 @@ free space.
     [-32767, 32767] in the HIGH half and the integer weight in the LOW
     half, bit-identical to the reference (``torch.round`` rounds half to
     even, as ``jnp.round`` does);
-  * float: one (2, X, Y, Z) float32 array, ``data[0]`` the tsdf grid and
-    ``data[1]`` the weight grid, the reference's default. Its scan fuses
-    into it. The reference's bfloat16 variant is not ported.
+  * float: one (2, X, Y, Z) array, ``data[0]`` the tsdf grid and
+    ``data[1]`` the weight grid: float32, the reference's default (its
+    scan fuses into it), or bfloat16 (``TsdfConfig.dtype="bfloat16"``),
+    half the bytes. Every reader takes a bfloat16 cell as float32 (exact);
+    the kernels store float32 math rounded to nearest even, and the dense
+    integrate, as the reference's, computes its running mean in bfloat16
+    itself.
 
 Both fusion paths take both layouts. ``tsdf`` / ``weight`` / ``dims`` /
 ``replace_grids`` read and write either layout, and ``read_tw`` /
@@ -60,32 +64,34 @@ def unpack_w(data: torch.Tensor) -> torch.Tensor:
 
 def read_tw(data: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float32 (tsdf, weight) of the cells ``idx`` (an index of the
-    (X, Y, Z) grid) of a volume's ``data`` in either layout: decoded from
-    the packed grid, or read from the two float planes."""
+    (X, Y, Z) grid) of a volume's ``data`` in any layout: decoded from
+    the packed grid, or read from the two planes (bfloat16 widened)."""
     if data.dim() == 3:
         cell = data[idx]
         return unpack_t(cell), unpack_w(cell)
-    return data[0][idx], data[1][idx]
+    return data[0][idx].float(), data[1][idx].float()
 
 
 def write_tw(data: torch.Tensor, idx, t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Store (tsdf, weight) into the cells ``idx`` of either layout (the
-    packed grid: ``pack_tw``; float: the two planes). Returns the tsdf as
-    stored, which is what a later read gives (quantized when packed)."""
+    """Store float32 (tsdf, weight) into the cells ``idx`` of any layout
+    (the packed grid: ``pack_tw``; the planes: in their type, bfloat16
+    rounded to nearest even). Returns the tsdf as stored, which is what a
+    later read gives (quantized when packed, rounded in bfloat16)."""
     if data.dim() == 3:
         cell = pack_tw(t, w)
         data[idx] = cell
         return unpack_t(cell)
-    data[0][idx] = t
-    data[1][idx] = w
-    return t
+    ts = t.to(data.dtype)
+    data[0][idx] = ts
+    data[1][idx] = w.to(data.dtype)
+    return ts.float()
 
 
 class TsdfVolume(NamedTuple):
     """The grids plus geometry as 0-d/1-d float32 tensors on the grids'
     device."""
 
-    data: torch.Tensor  # (X, Y, Z) packed int32 or (2, X, Y, Z) float32
+    data: torch.Tensor  # (X, Y, Z) packed int32 or (2, X, Y, Z) float32 / bfloat16
     origin: torch.Tensor  # (3,) world position of the volume min corner
     voxel_size: torch.Tensor  # () meters per voxel
     trunc: torch.Tensor  # () truncation distance in meters
@@ -96,7 +102,8 @@ class TsdfVolume(NamedTuple):
 
     @property
     def tsdf(self) -> torch.Tensor:
-        """(X, Y, Z) float32 tsdf: unpacked (a new tensor) or a view."""
+        """(X, Y, Z) tsdf: unpacked float32 (a new tensor) or a view in
+        the planes' type."""
         return unpack_t(self.data) if self.packed_i32 else self.data[0]
 
     @property
@@ -113,13 +120,27 @@ class TsdfVolume(NamedTuple):
         w = self.weight if weight is None else weight
         if self.packed_i32:
             return self._replace(data=pack_tw(t, w))
-        return self._replace(data=torch.stack([t, w]))
+        return self._replace(data=torch.stack([t, w]).to(self.data.dtype))
 
 
 def make_volume(tsdf, weight, origin, voxel_size, trunc) -> TsdfVolume:
     """A float-layout volume from separate grids."""
     return TsdfVolume(data=torch.stack([tsdf, weight]), origin=origin,
                       voxel_size=voxel_size, trunc=trunc)
+
+
+def fresh_data(shape, dtype, device) -> torch.Tensor:
+    """Unobserved cells (tsdf +1, weight 0) over the (X, Y, Z) ``shape``
+    in a layout: packed int32 (X, Y, Z), or float32 or bfloat16
+    (2, X, Y, Z)."""
+    if dtype not in (torch.int32, torch.float32, torch.bfloat16):
+        raise ValueError(f"a {dtype} volume has no layout (int32, float32 or bfloat16)")
+    if dtype == torch.int32:
+        return torch.full(shape, 32767 << 16, dtype=torch.int32, device=device)
+    data = torch.empty((2,) + tuple(shape), dtype=dtype, device=device)
+    data[0].fill_(1.0)
+    data[1].zero_()
+    return data
 
 
 def tsdf_new(
@@ -131,22 +152,14 @@ def tsdf_new(
     device="cuda",
 ) -> TsdfVolume:
     """Fresh volume (tsdf = +1 far free space, weight 0) on ``device``:
-    the float32 (2, X, Y, Z) layout by default, as the reference's, or the
-    packed one for ``dtype=torch.int32``. The default origin centers the
-    cube on the world origin."""
-    if dtype not in (torch.int32, torch.float32):
-        raise NotImplementedError(f"tsdf_new: {dtype} volumes are not ported (int32 or float32)")
+    the float32 (2, X, Y, Z) layout by default, as the reference's, the
+    same in bfloat16 for ``dtype=torch.bfloat16``, or the packed one for
+    ``dtype=torch.int32``. The default origin centers the cube on the
+    world origin."""
     if origin is None:
         origin = torch.full((3,), -size_m / 2.0, dtype=torch.float32)
-    shape = (resolution,) * 3
-    if dtype == torch.int32:
-        data = torch.full(shape, 32767 << 16, dtype=torch.int32, device=device)
-    else:
-        data = torch.empty((2,) + shape, dtype=torch.float32, device=device)
-        data[0].fill_(1.0)
-        data[1].zero_()
     return TsdfVolume(
-        data=data,
+        data=fresh_data((resolution,) * 3, dtype, device),
         origin=torch.as_tensor(origin, dtype=torch.float32).to(device),
         voxel_size=torch.tensor(size_m / resolution, dtype=torch.float32, device=device),
         trunc=torch.tensor(trunc, dtype=torch.float32, device=device),
@@ -155,10 +168,9 @@ def tsdf_new(
 
 def from_config(cfg, origin=None, device="cuda") -> TsdfVolume:
     """Volume for a ``config.TsdfConfig``: "packed_i16" is the packed
-    layout, any other name but "bfloat16" the float32 one."""
-    if cfg.dtype == "bfloat16":
-        raise NotImplementedError("the bfloat16 volume layout is not ported")
-    dtype = torch.int32 if cfg.dtype == "packed_i16" else torch.float32
+    layout, "bfloat16" the bfloat16 planes, any other name the float32
+    ones (the reference's mapping)."""
+    dtype = {"packed_i16": torch.int32, "bfloat16": torch.bfloat16}.get(cfg.dtype, torch.float32)
     return tsdf_new(cfg.resolution, cfg.size_m, cfg.trunc_dist, origin, dtype, device=device)
 
 
@@ -212,10 +224,14 @@ def tsdf_integrate(
     intr: Intrinsics,
     max_weight: float = 128.0,
     depth_interp: str = "bilinear",
+    x_offset: int = 0,
 ) -> TsdfVolume:
     """Fuse one (H, W) depth frame at the row-vector camera-to-world
     ``pose`` into the volume, IN PLACE (the reference donates the volume)
-    and in either layout; returns ``vol``.
+    and in any layout; returns ``vol``. ``x_offset``: the volume is the
+    X-slab from that plane on of a larger volume whose origin is
+    ``vol.origin`` (a sharded slab: the voxel centres are then the whole
+    volume's floats).
 
     Every voxel center projects into the frame, reads its depth
     (``depth_interp`` "bilinear", the default, or "nearest") and folds the
@@ -230,13 +246,13 @@ def tsdf_integrate(
         x1 = min(nx, x0 + slab)
         if vol.packed_i32:
             blk = vol.data[x0:x1]
-            t_new, w_new = integrate_core(vol, unpack_t(blk), unpack_w(blk), x0, depth, pose,
-                                          intr, max_weight, depth_interp)
+            t_new, w_new = integrate_core(vol, unpack_t(blk), unpack_w(blk), x_offset + x0,
+                                          depth, pose, intr, max_weight, depth_interp)
             blk.copy_(pack_tw(t_new, w_new))
         else:
             t_old, w_old = vol.data[0, x0:x1], vol.data[1, x0:x1]
-            t_new, w_new = integrate_core(vol, t_old, w_old, x0, depth, pose, intr, max_weight,
-                                          depth_interp)
+            t_new, w_new = integrate_core(vol, t_old, w_old, x_offset + x0, depth, pose, intr,
+                                          max_weight, depth_interp)
             t_old.copy_(t_new)
             w_old.copy_(w_new)
     return vol
@@ -245,9 +261,10 @@ def tsdf_integrate(
 def integrate_core(vol: TsdfVolume, t_old, w_old, x0: int, depth, pose, intr: Intrinsics,
                    max_weight: float = 128.0, depth_interp: str = "bilinear"):
     """The integrate's update of the x-slab ``[x0, x0 + len(t_old))``:
-    (new tsdf, new weight) from its float32 grids. The reference's
-    ``integrate_core`` over the slab's voxels, in float32 (the grid's
-    type)."""
+    (new tsdf, new weight) from its grids. The reference's
+    ``integrate_core`` over the slab's voxels: the geometry in float32,
+    the running mean in the grids' type (bfloat16 rounds every operation
+    of it there, as the reference's)."""
     sx, ny, nz = t_old.shape
     dev = t_old.device
     rot = pose[:3, :3]
@@ -283,8 +300,8 @@ def integrate_core(vol: TsdfVolume, t_old, w_old, x0: int, depth, pose, intr: In
 
     sdf = d - zc
     update = in_view & (d > 0) & (sdf >= -vol.trunc)
-    tsdf_sample = torch.clamp(sdf / vol.trunc, -1.0, 1.0)
-    w_add = update.to(f32)
+    tsdf_sample = torch.clamp(sdf / vol.trunc, -1.0, 1.0).to(t_old.dtype)
+    w_add = update.to(t_old.dtype)
     w_new = torch.clamp(w_old + w_add, max=max_weight)
     denom = torch.clamp(w_old + w_add, min=1.0)
     tsdf_upd = (t_old * w_old + tsdf_sample * w_add) / denom
@@ -292,12 +309,12 @@ def integrate_core(vol: TsdfVolume, t_old, w_old, x0: int, depth, pose, intr: In
 
 
 def _gather_tw(vol: TsdfVolume, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tsdf, weight) of the voxels at flat indices ``idx``; a packed
-    volume unpacks only the gathered cells."""
+    """Float32 (tsdf, weight) of the voxels at flat indices ``idx``; a
+    packed volume unpacks only the gathered cells."""
     if vol.packed_i32:
         cell = vol.data.reshape(-1)[idx]
         return unpack_t(cell), unpack_w(cell)
-    return vol.data[0].reshape(-1)[idx], vol.data[1].reshape(-1)[idx]
+    return vol.data[0].reshape(-1)[idx].float(), vol.data[1].reshape(-1)[idx].float()
 
 
 def sample_trilinear(vol: TsdfVolume, points_world: torch.Tensor,
@@ -373,8 +390,8 @@ def extract_surface_points(vol: TsdfVolume, max_points: int, min_weight: float =
     linear sub-voxel offset along the first crossing axis, in priority z,
     y, x."""
     nx, ny, nz = vol.dims
-    t = vol.tsdf
-    w = vol.weight
+    t = vol.tsdf.float()
+    w = vol.weight.float()
     cx = _axis_crossings(t, w, 0, min_weight)
     cy = _axis_crossings(t, w, 1, min_weight)
     cz = _axis_crossings(t, w, 2, min_weight)

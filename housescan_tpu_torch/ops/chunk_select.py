@@ -127,10 +127,17 @@ def build_worklist(
     origin: torch.Tensor,
     trunc: torch.Tensor,
     sat_quarters: torch.Tensor = None,
+    block_x0: int = 0,
     neg_flags: torch.Tensor = None,
     free_split: bool = False,
 ):
     """Classify all chunks and list the non-SKIP ones.
+
+    ``resolution`` is an int (a cubic volume) or the (nx, ny, nz) dims of
+    an X-slab; ``origin`` is then the whole volume's origin and
+    ``block_x0`` the slab's first global X block: the chunk corners are
+    at ``origin + (ci + block_x0) 8 vs``, the whole volume's floats. The
+    listed ci and the free list's bi stay slab-local.
 
     ``sat_quarters`` ((n, 4) bool, chunk raster order) marks z-quarters
     whose free space is saturated (planes field 11): a free + saturated
@@ -150,7 +157,7 @@ def build_worklist(
     ck = ids % nzc
 
     vs = voxel_size
-    x0 = origin[0] + ci.to(f32) * (8.0 * vs)
+    x0 = origin[0] + (ci + block_x0).to(f32) * (8.0 * vs)
     y0 = origin[1] + cj.to(f32) * (8.0 * vs)
     z0 = origin[2] + ck.to(f32) * (128.0 * vs)
 

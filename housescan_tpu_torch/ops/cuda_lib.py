@@ -48,6 +48,7 @@ DENSE_PATH = ("tsdf_dense", "planes_extract", "raycast_tiles")
 # Volume layouts of the kernels' storage template (csrc/common.cuh).
 LAYOUT_PACKED = 0
 LAYOUT_F32 = 1
+LAYOUT_BF16 = 2
 
 launch_counts = {k: 0 for k in KERNELS}
 plain_counts = {k: 0 for k in KERNELS}
@@ -97,11 +98,11 @@ _SIGNATURES = {
 OCCUPANCY = {
     "bilateral": ("hs_bilateral_occupancy", ("bilateral_kernel",)),
     "icp_level": ("hs_icp_occupancy", ("icp_level_kernel",)),
-    "tsdf_stream": ("hs_tsdf_stream_occupancy", ("packed", "float32")),
-    "tsdf_free": ("hs_tsdf_free_occupancy", ("packed", "float32")),
+    "tsdf_stream": ("hs_tsdf_stream_occupancy", ("packed", "float32", "bfloat16")),
+    "tsdf_free": ("hs_tsdf_free_occupancy", ("packed", "float32", "bfloat16")),
     "raycast_tiles": ("hs_raycast_tiles_occupancy", ("raycast_tiles_kernel",)),
     "solve6": ("hs_solve6_occupancy", ("solve6_kernel",)),
-    "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32")),
+    "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32", "bfloat16")),
     "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel",)),
 }
 for _fn, _ in OCCUPANCY.values():
@@ -199,8 +200,14 @@ def device_limits() -> tuple:
     return _limits[dev]
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call the library's launcher ``fn`` with ``args`` and the current
+    stream of ``device``, the device of the kernel's tensors, with that
+    device made current: the library launches on the current device, so
+    a tensor on another card than the current one still runs on its own
+    card and stream. Raises on a CUDA error."""
+    with torch.cuda.device(device):
+        check(getattr(load(), fn)(*args, torch.cuda.current_stream(device).cuda_stream), fn)
 
 
 def check(rc: int, name: str) -> None:
@@ -223,14 +230,15 @@ def require_cuda(name: str, *tensors, dtype=torch.float32) -> None:
 
 def volume_layout(name: str, data: torch.Tensor):
     """(layout code, (nx, ny, nz)) of a volume's ``data``: the packed
-    (X, Y, Z) int32 grid or the float32 (2, X, Y, Z) array; raises on any
-    other."""
+    (X, Y, Z) int32 grid or the (2, X, Y, Z) float32 or bfloat16 array;
+    raises on any other."""
     if data.dtype == torch.int32 and data.dim() == 3:
         return LAYOUT_PACKED, tuple(data.shape)
-    if data.dtype == torch.float32 and data.dim() == 4 and data.shape[0] == 2:
-        return LAYOUT_F32, tuple(data.shape[1:])
-    raise ValueError(f"{name}: a packed int32 (X, Y, Z) or float32 (2, X, Y, Z) volume is "
-                     f"required, got {data.dtype} {tuple(data.shape)}")
+    planar = {torch.float32: LAYOUT_F32, torch.bfloat16: LAYOUT_BF16}
+    if data.dtype in planar and data.dim() == 4 and data.shape[0] == 2:
+        return planar[data.dtype], tuple(data.shape[1:])
+    raise ValueError(f"{name}: a packed int32 (X, Y, Z) or float32 / bfloat16 (2, X, Y, Z) "
+                     f"volume is required, got {data.dtype} {tuple(data.shape)}")
 
 
 def host_tensor(values, dtype, device) -> torch.Tensor:

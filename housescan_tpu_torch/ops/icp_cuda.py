@@ -333,12 +333,12 @@ def icp_level_state(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
     host = (ctypes.c_float * 32)(*([0.0] * 12 + sc))
     plan = _plan(hp, wp, dev.index)
     state = torch.empty(STATE_LEN + 2 * plan.blocks * N_PARTIAL, dtype=torch.float32, device=dev)
-    rc = cuda_lib.load().hs_icp_level(
+    cuda_lib.launch(
+        "hs_icp_level", dev,
         packed.data_ptr(), hp, wp, plan.pixels_per_block, plan.shared_pixels, host,
         prev.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in gates),
-        pose0.data_ptr(), state.data_ptr(), n_iters, cuda_lib.stream_ptr(),
+        pose0.data_ptr(), state.data_ptr(), n_iters,
     )
-    cuda_lib.check(rc, "hs_icp_level")
     cuda_lib.launch_counts["icp_level"] += 1
     return state

@@ -74,11 +74,11 @@ def launch_extract_kernel(data: torch.Tensor, params: torch.Tensor) -> torch.Ten
     n_chunks = (dims[0] // 8) * (dims[1] // 8) * (dims[2] // CHUNK_Z)
     grid = stream_grid(n_chunks, *_card("planes_extract", _layout_key(layout), data.device.index))
     next_chunk = torch.empty(1, dtype=torch.int32, device=data.device)  # zeroed by the launch
-    rc = cuda_lib.load().hs_planes_extract(
+    cuda_lib.launch(
+        "hs_planes_extract", data.device,
         data.data_ptr(), layout, planes.data_ptr(), *dims, params.data_ptr(),
-        next_chunk.data_ptr(), grid, cuda_lib.stream_ptr(),
+        next_chunk.data_ptr(), grid,
     )
-    cuda_lib.check(rc, "hs_planes_extract")
     cuda_lib.launch_counts["planes_extract"] += 1
     return planes
 

@@ -103,11 +103,10 @@ def bilateral_filter_cuda(
         raise ValueError("bilateral_filter_cuda: (H, W) depth and radius <= 7")
     h, w = depth.shape
     out = torch.empty_like(depth)
-    lib = cuda_lib.load()
-    rc = lib.hs_bilateral(
+    cuda_lib.launch(
+        "hs_bilateral", depth.device,
         depth.data_ptr(), out.data_ptr(), h, w, radius,
-        sigma_space, sigma_depth, cuda_lib.stream_ptr(),
+        sigma_space, sigma_depth,
     )
-    cuda_lib.check(rc, "hs_bilateral")
     cuda_lib.launch_counts["bilateral"] += 1
     return out

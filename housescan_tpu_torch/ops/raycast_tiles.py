@@ -62,10 +62,16 @@ def build_tile_candidates(
     intr: Intrinsics,
     vol: TsdfVolume,
     z_min: float = 0.3,
+    block_x0: int = 0,
 ) -> torch.Tensor:
     """Phase 1: (n_tiles, max_ct, N_PREP) prepared candidates: [n xyz,
     d - n.o, centroid - o xyz, support r^2, block id, ok, occluder,
-    0...], zero rows past each tile's count."""
+    0...], zero rows past each tile's count.
+
+    ``block_x0``: the first global X block of an X-slab's planes
+    (``parallel/sharded.py``); ``vol.origin`` is the whole volume's, so
+    the sub-block centres, and the culling from them, are the whole
+    volume's floats."""
     nbx_x, nbx_y = planes.shape[0], planes.shape[1]
     nsub = vol.dims[2] // SUB_Z
     nb = nbx_x * nbx_y * nsub
@@ -94,7 +100,7 @@ def build_tile_candidates(
         bi = sel_ids // (nbx_y * nsub)
         bj = (sel_ids // nsub) % nbx_y
         bs = sel_ids % nsub
-        dx = vol.origin[0] + (bi * 8 + 4) * vs - t[0]
+        dx = vol.origin[0] + ((bi + block_x0) * 8 + 4) * vs - t[0]
         dy = vol.origin[1] + (bj * 8 + 4) * vs - t[1]
         dz = vol.origin[2] + (bs * SUB_Z + SUB_Z // 2) * vs - t[2]
         xc = dx * rot[0, 0] + dy * rot[0, 1] + dz * rot[0, 2]
@@ -297,14 +303,17 @@ def raycast_tiles_maps(
     intr: Intrinsics,
     vol: TsdfVolume,
     z_min: float = 0.3,
+    block_x0: int = 0,
 ) -> torch.Tensor:
     """K6: raw model maps before seam masking, (9, H, W): rows [depth,
-    vertex xyz, normal xyz, block id, occluder event t (BIG = none)]."""
+    vertex xyz, normal xyz, block id, occluder event t (BIG = none)].
+    ``block_x0``: an X-slab's first global X block (the planes and
+    ``vol`` are the slab's, ``vol.origin`` the whole volume's)."""
     if intr.height % 8:
         raise ValueError("raycast_tiles_maps: image height must be a multiple of 8")
     n_ut = -(-intr.width // 128)
     w_pad = n_ut * 128
-    cand = build_tile_candidates(planes, pose, intr, vol, z_min=z_min)
+    cand = build_tile_candidates(planes, pose, intr, vol, z_min=z_min, block_x0=block_x0)
     params = _ray_params(pose, intr, z_min, n_ut)
     if cand.device.type == "cpu":
         cuda_lib.plain_counts["raycast_tiles"] += 1
@@ -321,11 +330,10 @@ def launch_raycast_kernel(cand, params, height, w_pad):
     if n_prep != N_PREP or n_tiles != (height // 8) * (w_pad // 128) or params.numel() < 17:
         raise ValueError(f"raycast_tiles: bad candidate shape {tuple(cand.shape)}")
     out = torch.empty((9, height, w_pad), dtype=torch.float32, device=cand.device)
-    lib = cuda_lib.load()
-    rc = lib.hs_raycast_tiles(
+    cuda_lib.launch(
+        "hs_raycast_tiles", cand.device,
         cand.data_ptr(), n_tiles, max_ct, params.data_ptr(), out.data_ptr(),
-        height, w_pad, cuda_lib.stream_ptr(),
+        height, w_pad,
     )
-    cuda_lib.check(rc, "hs_raycast_tiles")
     cuda_lib.launch_counts["raycast_tiles"] += 1
     return out

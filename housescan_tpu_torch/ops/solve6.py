@@ -198,8 +198,7 @@ def solve_twist_compose(pose: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     a, b, pose_in = (t.to(torch.float32).contiguous() for t in (a, b, pose))
     out = torch.empty(17, dtype=torch.float32, device=pose.device)
     cuda_lib.require_cuda("solve_twist_compose", a, b, pose_in, out)
-    rc = cuda_lib.load().hs_solve6(a.data_ptr(), b.data_ptr(), pose_in.data_ptr(), out.data_ptr(),
-                                   float(damping), float(max_step), cuda_lib.stream_ptr())
-    cuda_lib.check(rc, "hs_solve6")
+    cuda_lib.launch("hs_solve6", pose.device, a.data_ptr(), b.data_ptr(), pose_in.data_ptr(),
+                    out.data_ptr(), float(damping), float(max_step))
     cuda_lib.launch_counts["solve6"] += 1
     return out[:16].reshape(4, 4), out[16]

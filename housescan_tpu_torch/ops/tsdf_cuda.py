@@ -311,7 +311,8 @@ def launch_dense_kernel(data, mips, params):
     grid = stream_grid(nbx * nby, *_card("tsdf_dense", "tsdf_dense_kernel", data.device.index))
     next_col = torch.empty(1, dtype=torch.int32, device=data.device)  # zeroed by the launch
     m0, m1, m2, l3, l3min, l3max, l3valid = mips
-    rc = cuda_lib.load().hs_tsdf_dense(
+    cuda_lib.launch(
+        "hs_tsdf_dense", data.device,
         data.data_ptr(), nx, ny, nz,
         m0.data_ptr(), m0.shape[0], m0.shape[1],
         m1.data_ptr(), m1.shape[0], m1.shape[1],
@@ -319,9 +320,7 @@ def launch_dense_kernel(data, mips, params):
         l3.data_ptr(), l3.shape[0], l3.shape[1],
         l3min.data_ptr(), l3max.data_ptr(), l3valid.data_ptr(),
         params.data_ptr(), cls.data_ptr(), planes.data_ptr(), next_col.data_ptr(), grid,
-        cuda_lib.stream_ptr(),
     )
-    cuda_lib.check(rc, "hs_tsdf_dense")
     cuda_lib.launch_counts["tsdf_dense"] += 1
     return cls, planes
 
@@ -347,6 +346,10 @@ def tsdf_integrate_with_planes(
     (vol, planes (R/8, R/8, 16, 128)). K8 on a CUDA volume, its plain
     version on a CPU one."""
     layout, dims = cuda_lib.volume_layout("tsdf_integrate_with_planes", vol.data)
+    if layout == cuda_lib.LAYOUT_BF16:
+        # the reference asserts the same (ops/tsdf_pallas.py: "pallas path is f32")
+        raise ValueError("tsdf_integrate_with_planes: K8 takes the float32 or packed volume, "
+                         "not bfloat16")
     r = dims[0]
     if len(set(dims)) != 1 or r % CHUNK_Z or r // SUB_Z > LANES:
         raise ValueError(f"tsdf_integrate_with_planes: a cubic volume tiling into (8, 8, 128) "

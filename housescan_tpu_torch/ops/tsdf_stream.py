@@ -20,9 +20,11 @@ their volume data and planes bit-identical. The volume and the planes are
 updated IN PLACE (the reference donates them), which saves a full copy of
 the volume per frame.
 
-Both volume layouts (``kinfu/tsdf.py``), as in the reference: the packed
-int32 grid and the float32 (2, X, Y, Z) array. The math is float32 on
-both; the layout only decides how a cell is read and stored
+Every volume layout (``kinfu/tsdf.py``), as in the reference: the packed
+int32 grid and the (2, X, Y, Z) array in float32 or bfloat16. The math is
+float32 on all three (the reference's "all math is f32"); the layout only
+decides how a cell is read and stored (a bfloat16 store rounds to nearest
+even)
 (``tsdf.read_tw`` / ``write_tw``; in CUDA the storage template of
 ``csrc/common.cuh``). The plane fit reads the tsdf as stored (quantized
 when packed, the float itself otherwise); the saturation and negative
@@ -135,14 +137,16 @@ def build_depth_mips(depth: torch.Tensor):
     return tuple(m.contiguous() for m in (m0, m1, m2, l3))
 
 
-def _stream_params(vol: TsdfVolume, pose, intr: Intrinsics, max_weight, nbx, nzc):
+def _stream_params(vol: TsdfVolume, pose, intr: Intrinsics, max_weight, nbx, nzc, bx0=0):
+    """K4's and K5's params: slot 24 the (global) X block count of the
+    sub-block ids, 26 the slab's first global X block."""
     return cuda_lib.f32_vector(
         [
             pose[:3, :3], pose[3, :3],
             intr.fx, intr.fy, intr.cx, intr.cy,
             vol.trunc, vol.voxel_size, vol.origin,
             max_weight, intr.width, intr.height,
-            nbx, nzc, 0.0,
+            nbx, nzc, bx0,
             0.0, 0.0, 0.0, 0.0, 0.0,
         ],
         vol.data.device,
@@ -223,8 +227,10 @@ def _window_depth(mip, nrows, win_u, scale, v0, u0, uf, vf):
     return depth, has
 
 
-def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
-    """Plain K4 over the chunks of descriptor rows ``d`` (B, 8)."""
+def _integrate_chunks(data, planes, d, mips, p, nbx, nzc, bx0=0):
+    """Plain K4 over the chunks of descriptor rows ``d`` (B, 8): world x
+    and the sub-block ids (of ``nbx`` X blocks) from ci + ``bx0``, the
+    data and planes at the slab-local ci."""
     f32 = torch.float32
     dev = data.device
     ci, cj, ck, cls, lvl, v0, u0 = (d[:, k] for k in range(7))
@@ -235,7 +241,7 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     trunc, vs = p[16], p[17]
     ox, oy, oz = p[18], p[19], p[20]
     max_weight, img_w, img_h = p[21], p[22], p[23]
-    xc, yc, zc = chunk_camera(ci, cj, ck, p)
+    xc, yc, zc = chunk_camera(ci + bx0, cj, ck, p)
 
     # FREE in-view test, multiplied through by zc as in the reference
     fxx = fx * xc
@@ -318,7 +324,7 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     q_maxw = wnew.reshape(qshape).amax(dim=(1, 2, 4))
     sat = ((q_minw >= SAT_W) & (q_mint > 0.999) & (q_maxw > 0.0)).to(f32)
 
-    fields = chunk_plane_fields(t_stored, wnew, ci, cj, ck, vs, ox, oy, oz, nbx, nzc)
+    fields = chunk_plane_fields(t_stored, wnew, ci + bx0, cj, ck, vs, ox, oy, oz, nbx, nzc)
     fields = torch.where(may_cross.reshape(b, 1, 1), fields, 0.0)
     fields[:, FIELD_SAT, :N_QUARTERS] = sat
     fields[:, FIELD_SAT, N_QUARTERS] = (mn_t < 0.0).to(f32)
@@ -326,10 +332,10 @@ def _integrate_chunks(data, planes, d, mips, p, nbx, nzc):
     planes[ci.long(), cj.long(), ck.long()] = fields
 
 
-def _carve_chunks(data, planes, c, p):
+def _carve_chunks(data, planes, c, p, bx0=0):
     """Plain K5 over member chunks ``c`` (B, 3) = (ci, cj, ck): the
     CLS_FREE carve and the planes tile of zeros with the saturation
-    flags (``_free_kernel``)."""
+    flags (``_free_kernel``); world x from ci + ``bx0``."""
     f32 = torch.float32
     dev = data.device
     ci, cj, ck = c[:, 0], c[:, 1], c[:, 2]
@@ -338,7 +344,7 @@ def _carve_chunks(data, planes, c, p):
     told, wold = read_tw(data, cells)
     fx, fy, cx, cy = p[12], p[13], p[14], p[15]
     max_weight, img_w, img_h = p[21], p[22], p[23]
-    xc, yc, zc = chunk_camera(ci, cj, ck, p)
+    xc, yc, zc = chunk_camera(ci + bx0, cj, ck, p)
     fxx = fx * xc
     fyy = fy * yc
     iv = (
@@ -366,9 +372,9 @@ def _carve_chunks(data, planes, c, p):
     planes[ci, cj, ck] = tile
 
 
-def free_carve_plain(data, planes, fwl: FreeWorkList, params):
+def free_carve_plain(data, planes, fwl: FreeWorkList, params, bx0=0):
     """K5's plain version: every member chunk of the listed superblocks,
-    updated in place."""
+    updated in place (``bx0``: a slab's first global X block)."""
     n = int(fwl.count[0])
     bits = torch.arange(16, device=data.device)
     member = ((fwl.bitmap[:n, None] >> bits) & 1) > 0  # (n, 16)
@@ -377,15 +383,17 @@ def free_carve_plain(data, planes, fwl: FreeWorkList, params):
     ck = fwl.bk[:n, None].expand(n, 16)
     chunks = torch.stack([ci[member], cj[member], ck[member]], dim=1).long()
     for s in range(0, chunks.shape[0], PLAIN_BATCH):
-        _carve_chunks(data, planes, chunks[s : s + PLAIN_BATCH], params)
+        _carve_chunks(data, planes, chunks[s : s + PLAIN_BATCH], params, bx0)
 
 
-def integrate_plain(data, planes, desc, count, mips, params, nbx, nzc):
-    """K4's plain version: batches of listed chunks, updated in place."""
+def integrate_plain(data, planes, desc, count, mips, params, nbx, nzc, bx0=0):
+    """K4's plain version: batches of listed chunks, updated in place
+    (``nbx``: the X block count of the sub-block ids, the whole volume's;
+    ``bx0``: a slab's first global X block)."""
     n = int(count[0])
     rows = desc[:n].long()
     for s in range(0, n, PLAIN_BATCH):
-        _integrate_chunks(data, planes, rows[s : s + PLAIN_BATCH], mips, params, nbx, nzc)
+        _integrate_chunks(data, planes, rows[s : s + PLAIN_BATCH], mips, params, nbx, nzc, bx0)
 
 
 def tsdf_integrate_stream(
@@ -396,15 +404,24 @@ def tsdf_integrate_stream(
     intr: Intrinsics,
     max_weight: float = 128.0,
     free_split: bool = True,
+    global_blocks=None,
 ):
-    """Integrate ``depth`` at ``pose`` into the volume (either layout) and
+    """Integrate ``depth`` at ``pose`` into the volume (any layout) and
     refresh the persistent planes of every listed chunk, both IN PLACE:
     the free carve (K5) over the pure-free superblocks when
-    ``free_split``, then K4 over the main list. Returns (vol, planes)."""
+    ``free_split``, then K4 over the main list. Returns (vol, planes).
+
+    ``global_blocks`` = (global X block count, the slab's first X block)
+    for an X-slab of a sharded volume (``parallel/sharded.py``), whose
+    ``vol.origin`` is then the WHOLE volume's origin: world coordinates
+    and sub-block ids take the global block, so every float of the slab is
+    the one the whole volume computes (a slab-local origin rounds
+    differently in float32)."""
     _, dims = cuda_lib.volume_layout("tsdf_integrate_stream", vol.data)
     if any(d % 8 for d in dims) or dims[2] % CHUNK_Z:
         raise ValueError(f"tsdf_integrate_stream: a volume tiling into (8, 8, 128) chunks required, got {dims}")
     nbx, nby, nzc = dims[0] // 8, dims[1] // 8, dims[2] // CHUNK_Z
+    id_nbx, bx0 = (nbx, 0) if global_blocks is None else (int(global_blocks[0]), int(global_blocks[1]))
     if tuple(planes.shape) != planes_shape(dims):
         raise ValueError(f"planes shape {tuple(planes.shape)} != {planes_shape(dims)}")
     depth = depth.to(torch.float32)
@@ -412,17 +429,18 @@ def tsdf_integrate_stream(
     geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
     if free_split:
         neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
-        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, neg_flags=neg_c, free_split=True)
+        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0, neg_flags=neg_c,
+                                 free_split=True)
     else:
-        wl, fwl = build_worklist(*geom, sat_quarters=sat_q), None
+        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0), None
     mips = build_depth_mips(depth)
-    params = _stream_params(vol, pose, intr, max_weight, nbx, nzc)
+    params = _stream_params(vol, pose, intr, max_weight, id_nbx, nzc, bx0)
     if vol.data.device.type == "cpu":
         if fwl is not None:
             cuda_lib.plain_counts["tsdf_free"] += 1
-            free_carve_plain(vol.data, planes, fwl, params)
+            free_carve_plain(vol.data, planes, fwl, params, bx0)
         cuda_lib.plain_counts["tsdf_stream"] += 1
-        integrate_plain(vol.data, planes, wl.desc, wl.count, mips, params, nbx, nzc)
+        integrate_plain(vol.data, planes, wl.desc, wl.count, mips, params, id_nbx, nzc, bx0)
         return vol, planes
     if fwl is not None:
         launch_free_kernel(vol.data, planes, fwl, params)
@@ -446,8 +464,9 @@ def _card(kernel: str, key: str, device: int):
 
 
 def _layout_key(layout: int) -> str:
-    """K4's and K5's occupancy key of a volume layout."""
-    return "packed" if layout == cuda_lib.LAYOUT_PACKED else "float32"
+    """K4's, K5's and K7's occupancy key of a volume layout."""
+    return {cuda_lib.LAYOUT_PACKED: "packed", cuda_lib.LAYOUT_F32: "float32",
+            cuda_lib.LAYOUT_BF16: "bfloat16"}[layout]
 
 
 def launch_stream_kernel(data, planes, desc, count, mips, params):
@@ -466,16 +485,16 @@ def launch_stream_kernel(data, planes, desc, count, mips, params):
     grid = stream_grid(desc.shape[0], *_card("tsdf_stream", _layout_key(layout), data.device.index))
     if grid < 1 and desc.shape[0]:
         raise ValueError("tsdf_stream: no block of the kernel fits on an SM")
-    rc = cuda_lib.load().hs_tsdf_stream(
+    cuda_lib.launch(
+        "hs_tsdf_stream", data.device,
         data.data_ptr(), layout, planes.data_ptr(), desc.data_ptr(), count.data_ptr(),
         grid, nx, ny, nz,
         m0.data_ptr(), m0.shape[0], m0.shape[1],
         m1.data_ptr(), m1.shape[0], m1.shape[1],
         m2.data_ptr(), m2.shape[0], m2.shape[1],
         l3.data_ptr(), l3.shape[0], l3.shape[1],
-        params.data_ptr(), SAT_W, cuda_lib.stream_ptr(),
+        params.data_ptr(), SAT_W,
     )
-    cuda_lib.check(rc, "hs_tsdf_stream")
     cuda_lib.launch_counts["tsdf_stream"] += 1
 
 
@@ -497,10 +516,10 @@ def launch_free_kernel(data, planes, fwl: FreeWorkList, params):
     grid = stream_grid(16 * n_sb, *_card("tsdf_free", _layout_key(layout), data.device.index))
     if grid < 1 and n_sb:
         raise ValueError("tsdf_free: no block of the kernel fits on an SM")
-    rc = cuda_lib.load().hs_tsdf_free(
+    cuda_lib.launch(
+        "hs_tsdf_free", data.device,
         data.data_ptr(), layout, planes.data_ptr(), fwl.bitmap.data_ptr(), fwl.count.data_ptr(),
         fwl.bi.data_ptr(), fwl.bj.data_ptr(), fwl.bk.data_ptr(), grid, nx, ny, nz,
-        params.data_ptr(), SAT_W, cuda_lib.stream_ptr(),
+        params.data_ptr(), SAT_W,
     )
-    cuda_lib.check(rc, "hs_tsdf_free")
     cuda_lib.launch_counts["tsdf_free"] += 1

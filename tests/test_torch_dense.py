@@ -253,8 +253,7 @@ def test_kernel_wrapper_allocates_planes_without_fill(monkeypatch):
         raise AssertionError("the planes were filled on the host side of the launch")
 
     monkeypatch.setattr(cuda_lib, "require_cuda", lambda *a, **k: None)
-    monkeypatch.setattr(cuda_lib, "load", lambda: Lib())
-    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(cuda_lib, "launch", lambda fn, device, *args: getattr(Lib(), fn)(*args, 0))
     monkeypatch.setattr(tsdf_cuda, "_card", lambda kernel, key, device: (1, 132))
     monkeypatch.setattr(torch, "zeros", no_fill)
     monkeypatch.setattr(torch, "full", no_fill)

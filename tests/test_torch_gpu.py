@@ -1021,3 +1021,365 @@ def test_room_stage_on_card_matches_cpu(cuda, tmp_path):
     for a, b in zip(gpl, cpl):
         assert len(a) > 1000
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+# --- the bfloat16 volume and the slab offset ---------------------------------
+
+
+def _random_bf16_volume(cuda, res=128, seed=0):
+    """A (2, res, res, res) bfloat16 volume of random cells: the tsdf
+    uniform in [-1, 1], the weights integers 0..20 (a third of them 0)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    t = torch.rand((res,) * 3, generator=g) * 2.0 - 1.0
+    w = torch.randint(0, 21, (res,) * 3, generator=g).float()
+    w = torch.where(torch.rand((res,) * 3, generator=g) < 0.33, 0.0, w)
+    vol = tsdf_new(res, 3.0, 0.06, dtype=torch.bfloat16, device=cuda)
+    return vol._replace(data=torch.stack([t, w]).to(torch.bfloat16).to(cuda))
+
+
+@pytest.fixture(params=["fused", "random"])
+def bf16_volume(cuda, request):
+    """A 128^3 bfloat16 volume (one fused frame, or random cells) with its
+    planes, and the next frame's inputs."""
+    poses, frames = _stream(QQVGA, 2, 0.3, cuda)
+    if request.param == "fused":
+        vol = tsdf_new(128, 3.0, 0.06, dtype=torch.bfloat16, device=cuda)
+    else:
+        vol = _random_bf16_volume(cuda)
+    planes = torch.zeros(planes_shape(128), device=cuda)
+    tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda), QQVGA)
+    return vol, planes, frames[1], torch.from_numpy(poses[1]).to(cuda)
+
+
+@pytest.mark.gpu
+def test_bf16_stream_kernel_bit_identical(bf16_volume):
+    """K4 on the bfloat16 layout: float32 math, stores rounded to nearest
+    even in both: volume and planes bit-identical to the plain version."""
+    vol, planes, d, p = bf16_volume
+    sat = planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+    wl = build_worklist(d, p, QQVGA, 128, vol.voxel_size, vol.origin, vol.trunc, sat_quarters=sat)
+    mips = build_depth_mips(d)
+    params = _stream_params(vol, p, QQVGA, 128.0, 16, 1)
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_stream_kernel(kd, kp, wl.desc, wl.count, mips, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    integrate_plain(qd, qp, wl.desc, wl.count, mips, params, 16, 1)
+    torch.cuda.synchronize()
+    assert int((kd != vol.data).sum()) > 1000
+    assert int((qp[:, :, :, 5] > 0).sum()) > 30  # sub-blocks with crossings fitted
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells", ["carved", "random"])
+def test_bf16_free_kernel_bit_identical(cuda, cells):
+    """K5 on the bfloat16 layout (8-byte vectors of 4 cells), on the
+    carved scene and with the same free list over random cells."""
+    vol, planes, fwl, params = _carved_free_list(cuda, torch.bfloat16)
+    if cells == "random":
+        vol = vol._replace(data=_random_bf16_volume(cuda, seed=1).data)
+    kd, kp = vol.data.clone(), planes.clone()
+    launch_free_kernel(kd, kp, fwl, params)
+    qd, qp = vol.data.clone(), planes.clone()
+    free_carve_plain(qd, qp, fwl, params)
+    torch.cuda.synchronize()
+    assert int((kd != vol.data).sum()) > 1000
+    assert torch.equal(kd, qd)
+    assert torch.equal(kp, qp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fused", "full", "one_subblock"])
+def test_bf16_extract_kernel_bit_identical(cuda, kind):
+    """K7 on the bfloat16 layout: two fused frames, and the built volumes
+    of ``_k7_grids`` rounded to bfloat16 at a non-cubic size."""
+    if kind == "fused":
+        poses, frames = _stream(QQVGA, 2, 0.3, cuda)
+        vol = tsdf_new(128, 3.0, 0.06, dtype=torch.bfloat16, device=cuda)
+        planes = torch.zeros(planes_shape(128), device=cuda)
+        for d, p in zip(frames, poses):
+            tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(cuda), QQVGA)
+    else:
+        dims = (128, 128, 256)
+        t, w = (torch.from_numpy(g).to(cuda) for g in _k7_grids(kind, dims))
+        vol = tsdf_new(128, 3.0, 0.06, dtype=torch.bfloat16, device=cuda)
+        vol = vol._replace(data=torch.stack([t, w]).to(torch.bfloat16))
+    params = _extract_params(vol, 6.0, vol.dims[0] // 8)
+    k = launch_extract_kernel(vol.data, params)
+    q = extract_planes_plain(vol.data, params)
+    torch.cuda.synchronize()
+    assert int((q[:, :, :, 4] > 0.5).sum()) >= 1
+    assert torch.equal(k, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16],
+                         ids=["packed", "float32", "bfloat16"])
+def test_slab_kernels_match_plain_and_whole_volume(cuda, dtype):
+    """K5 then K4 on an X-slab (X blocks 4..7 of 16) with its offset: the
+    kernels equal their plain versions, and the slab equals the same
+    X-range of the whole volume integrated by the plain versions."""
+    vol, planes, poses, frames = _carved_scene(cuda, 3, dtype)
+    for k in range(2):
+        tsdf_integrate_stream(vol, planes, frames[k], torch.from_numpy(poses[k]).to(cuda), QQVGA)
+    p2 = torch.from_numpy(poses[2]).to(cuda)
+    whole = vol._replace(data=vol.data.cpu().clone(), origin=vol.origin.cpu(),
+                         voxel_size=vol.voxel_size.cpu(), trunc=vol.trunc.cpu())
+    whole_planes = planes.cpu().clone()
+    tsdf_integrate_stream(whole, whole_planes, frames[2].cpu(), p2.cpu(), QQVGA)
+    xs = slice(32, 64)
+    cut = (lambda a: a[xs]) if dtype == torch.int32 else (lambda a: a[:, xs])
+    slab = vol._replace(data=cut(vol.data).contiguous())
+    slab_planes = planes[4:8].contiguous()
+    sat = slab_planes[:, :, :, FIELD_SAT, :4].reshape(-1, 4) > 0.5
+    neg = slab_planes[:, :, :, FIELD_SAT, 4].reshape(-1) > 0.5
+    wl, fwl = build_worklist(frames[2], p2, QQVGA, slab.dims, vol.voxel_size, vol.origin,
+                             vol.trunc, sat_quarters=sat, block_x0=4, neg_flags=neg,
+                             free_split=True)
+    assert int(wl.count[0]) >= 1
+    params = _stream_params(slab, p2, QQVGA, 128.0, 16, 1, 4)
+    mips = build_depth_mips(frames[2])
+    kd, kp = slab.data.clone(), slab_planes.clone()
+    launch_free_kernel(kd, kp, fwl, params)
+    launch_stream_kernel(kd, kp, wl.desc, wl.count, mips, params)
+    qd, qp = slab.data.clone(), slab_planes.clone()
+    free_carve_plain(qd, qp, fwl, params, 4)
+    integrate_plain(qd, qp, wl.desc, wl.count, mips, params, 16, 1, 4)
+    torch.cuda.synchronize()
+    assert int((kd != slab.data).sum()) > 1000
+    assert torch.equal(kd, qd) and torch.equal(kp, qp)
+    assert torch.equal(kd.cpu(), cut(whole.data)) and torch.equal(kp.cpu(), whole_planes[4:8])
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_one_card_bit_identical_to_single(cuda):
+    """The 4-slab sharded kernel-path step on cuda:0, teacher-forced from
+    the single-device state for 3 frames at 128^3: pose, volume, planes,
+    model vertices and valid mask bit-identical; normals within the
+    reference's bound (< 5e-3, under 1% of pixels over 1e-4: a tie between
+    slabs takes each component's max)."""
+    from housescan_tpu_torch.parallel import make_mesh
+    from housescan_tpu_torch.parallel.sharded import (
+        make_sharded_step,
+        sharded_state_from_single,
+        single_state_from_sharded,
+    )
+
+    poses, frames = _stream(QQVGA, 3, 0.06, cuda)
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    step = make_sharded_step(mesh, QQVGA, iterations=(10, 5, 4), use_pallas=True)
+    ref = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                     dtype=torch.int32, device=cuda)
+    cuda_lib.reset_counts()
+    for k in range(3):
+        sh = single_state_from_sharded(step(sharded_state_from_single(mesh, ref, True),
+                                            frames[k]))
+        ref = kinfu_step(ref, frames[k], QQVGA)
+        torch.cuda.synchronize()
+        assert torch.equal(sh.pose, ref.pose)
+        assert torch.equal(sh.volume.data, ref.volume.data)
+        assert torch.equal(sh.planes, ref.planes)
+        assert torch.equal(sh.model_maps[mp.MD_V], ref.model_maps[mp.MD_V])
+        assert torch.equal(sh.model_maps[mp.MD_VALID], ref.model_maps[mp.MD_VALID])
+        dn = (sh.model_maps[mp.MD_N] - ref.model_maps[mp.MD_N]).abs()
+        assert float(dn.max()) < 5e-3
+        assert int((dn.amax(0) > 1e-4).sum()) < dn[0].numel() // 100
+    assert all(cuda_lib.launch_counts[k] > 0 for k in cuda_lib.KERNEL_PATH)
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNELS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["kernel_path", "xla_path"])
+def test_step_on_a_second_card_bit_identical_to_the_first(cuda, use_pallas):
+    """Three steps on cuda:1 while cuda:0 is the current device: each
+    kernel of the path (K1, K3-K6; K1, K2 on the XLA path) launches on
+    the card of its tensors, and the state is the one cuda:0 gives, bit
+    for bit. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    poses, frames = _stream(QQVGA, 3, 0.06, "cpu")
+    out = []
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                        dtype=torch.int32, device=dev)
+        with torch.cuda.device(0):
+            for d in frames:
+                st = kinfu_step(st, d.to(dev), QQVGA, use_pallas=use_pallas)
+        torch.cuda.synchronize(dev)
+        out.append(st)
+    a, b = out
+    assert b.volume.data.device == torch.device("cuda", 1)
+    for x, y in ((a.pose, b.pose), (a.volume.data, b.volume.data), (a.planes, b.planes),
+                 (a.model_maps, b.model_maps)):
+        assert torch.equal(x.cpu(), y.cpu())
+    assert int((a.volume.data & 0xFFFF).count_nonzero()) > 10000
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_several_cards_bit_identical_to_single(cuda):
+    """The sharded step with one slab a card (``make_mesh(n)`` over the
+    first n <= 4 visible cards), teacher-forced from the single-device
+    state on cuda:0 for 3 frames at 128^3: each slab lives on its own
+    card and K4, K5 and K6 launch there, and pose, volume, planes, model
+    vertices and valid mask are bit-identical to the single-device step;
+    then the XLA path's first frame on the same mesh integrates as the
+    single-device one, bit for bit. Skips with fewer than two cards."""
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_integrate
+    from housescan_tpu_torch.parallel import make_mesh, sharded_kinfu_init
+    from housescan_tpu_torch.parallel.sharded import (
+        make_sharded_step,
+        sharded_state_from_single,
+        single_state_from_sharded,
+    )
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    dev0 = torch.device("cuda", 0)
+    poses, frames = _stream(QQVGA, 3, 0.06, dev0)
+    mesh = make_mesh(n)
+    assert [d.index for d in mesh.devices] == list(range(n))
+    step = make_sharded_step(mesh, QQVGA, iterations=(10, 5, 4), use_pallas=True)
+    ref = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                     dtype=torch.int32, device=dev0)
+    for k in range(3):
+        sh_in = sharded_state_from_single(mesh, ref, True)
+        assert [s.device for s in sh_in.volume.slabs] == mesh.devices
+        sh = single_state_from_sharded(step(sh_in, frames[k]))
+        ref = kinfu_step(ref, frames[k], QQVGA)
+        for d in mesh.devices:
+            torch.cuda.synchronize(d)
+        assert torch.equal(sh.pose, ref.pose)
+        assert torch.equal(sh.volume.data, ref.volume.data)
+        assert torch.equal(sh.planes, ref.planes)
+        assert torch.equal(sh.model_maps[mp.MD_V], ref.model_maps[mp.MD_V])
+        assert torch.equal(sh.model_maps[mp.MD_VALID], ref.model_maps[mp.MD_VALID])
+    xstep = make_sharded_step(mesh, QQVGA, use_pallas=False)
+    xs = sharded_kinfu_init(mesh, QQVGA, resolution=64, size_m=3.0, trunc=0.1, init_pose=poses[0])
+    xs = xstep(xs, frames[0])
+    single = tsdf_integrate(tsdf_new(64, 3.0, 0.1, device=dev0), frames[0],
+                            torch.from_numpy(poses[0]).to(dev0), QQVGA)
+    assert torch.equal(xs.volume.gather().data, single.data)
+
+
+@pytest.mark.gpu
+def test_tracked_two_room_building_on_card(cuda, tmp_path):
+    """Twin of tests/test_building.py's tracked two-room building (542
+    tracked frames a room on the XLA path at 64^3; on the CPU the port's
+    eager ray marcher takes ~1 s a frame, so the twin runs here): every
+    assembly stage engages, with the reference's bounds."""
+    import json
+
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.config import Config, RansacConfig, TsdfConfig
+    from housescan_tpu_torch.kinfu.building import RoomScan, scan_building
+    from housescan_tpu_torch.kinfu.synthetic import coverage_sweep_poses, flat_furnished_room
+
+    cfg = Config(tsdf=TsdfConfig(resolution=64, size_m=3.2, trunc_dist=0.1),
+                 ransac=RansacConfig(min_inlier_fraction=0.005, max_planes=16, n_hypotheses=1024))
+    half, boxes = flat_furnished_room()
+    poses = coverage_sweep_poses()
+    frames = render_depth_stream(QQVGA, poses, half, boxes=boxes, device=cuda).cpu().numpy()
+    rooms = [RoomScan(name=f"room{ri}", stream=DepthStream(frames=frames, intrinsics=QQVGA),
+                      init_pose=poses[0]) for ri in range(2)]
+    scene, fitted, out = scan_building(rooms, tmp_path / "bld", config=cfg, gap=0.1, device=cuda)
+    bc = json.loads((out / "building_checkpoint.json").read_text())
+    assert set(bc["fit_rmse"]) == {"room0", "room1"}, bc["fit_rmse"]
+    for name, rmse in bc["fit_rmse"].items():
+        assert rmse < 0.06, f"{name}: cuboid RMSE {rmse * 1000:.1f} mm"
+    for r in fitted:
+        assert len(r.corners) == 8 and len(r.planes) == 6
+        cs = np.stack([c for _, c in r.corners])
+        dims = np.sort(cs.max(axis=0) - cs.min(axis=0))
+        assert np.allclose(dims, [1.5, 2.6, 2.6], atol=0.1), dims
+    assert bc["n_wall_connections"] >= 1 and len(scene.connected_walls) >= 1
+    assert bc["optimize"] and any(nc >= 1 for _a, nc, _r in bc["optimize"])
+    off = float(fitted[1].mean()[0] - fitted[0].mean()[0])
+    assert 2.4 < off < 3.0, f"room1 - room0 X offset {off:.2f} m"
+
+
+def _sweep_buildings_rooms(n, cuda):
+    """tests/test_building.py's full-coverage known-pose sweeps (walls up
+    and down, floor and ceiling passes, 6 poses each) of ``n`` rooms."""
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.kinfu.building import RoomScan
+
+    half = np.array([1.3, 1.1, 1.3], np.float32)
+    _, boxes = furnished_room()
+    rooms = []
+    for ri in range(n):
+        sweeps = [orbit_poses(6, radius=0.25, yaw_range=6.283, pitch=p, seed=ri)
+                  for p in (0.35, -0.35)]
+        sweeps.append(orbit_poses(6, radius=0.7, height=-0.6, yaw_range=6.283, pitch=-1.2, seed=ri))
+        sweeps.append(orbit_poses(6, radius=0.7, height=0.6, yaw_range=6.283, pitch=1.2, seed=ri))
+        poses = np.concatenate(sweeps)
+        frames = render_depth_stream(QQVGA, poses, half, boxes, seed=ri, device=cuda).cpu().numpy()
+        rooms.append(RoomScan(name=f"room{ri}", stream=DepthStream(frames=frames, intrinsics=QQVGA),
+                              init_pose=poses[0], known_poses=poses))
+    return rooms
+
+
+def _grid_config():
+    from housescan_tpu_torch.config import Config, RansacConfig, TsdfConfig
+
+    return Config(tsdf=TsdfConfig(resolution=128, size_m=3.2, trunc_dist=0.06),
+                  ransac=RansacConfig(min_inlier_fraction=0.01, max_planes=12, n_hypotheses=1024))
+
+
+@pytest.mark.gpu
+def test_eight_room_grid_building_on_card(cuda, tmp_path):
+    """Twin of tests/test_building.py's 8-room grid building (on the CPU
+    the port's plain versions take ~56 s a room): every grid neighbour
+    pair chained on X and Z, room width + gap apart."""
+    import json
+
+    from housescan_tpu_torch.kinfu.building import cantor_slots, scan_building
+
+    scene, fitted, out = scan_building(_sweep_buildings_rooms(8, cuda), tmp_path / "bld",
+                                       config=_grid_config(), gap=0.1, layout="grid", device=cuda)
+    assert len(scene.rooms) == 8
+    done = json.loads((out / "building_checkpoint.json").read_text())
+    assert done["rooms_done"] == [f"room{i}" for i in range(8)]
+    assert len(sorted((out / "xf").glob("*.xf"))) == 8
+    assert len(scene.connected_walls) >= 2
+    by_slot = {s: i for i, s in enumerate(cantor_slots(8))}
+    n_checked = 0
+    for (gx, gz), i in by_slot.items():
+        for dx, dz, axis_i in ((1, 0, 0), (0, 1, 2)):
+            j = by_slot.get((gx + dx, gz + dz))
+            if j is not None:
+                off = float(fitted[j].mean()[axis_i] - fitted[i].mean()[axis_i])
+                assert 2.3 < off < 3.1, f"rooms {i}->{j} axis {axis_i}: offset {off:.2f} m"
+                n_checked += 1
+    assert n_checked >= 2
+
+
+@pytest.mark.gpu
+def test_three_floor_building_on_card(cuda, tmp_path):
+    """Twin of tests/test_building.py's three-floor building: 7 wall
+    connections, the Y axis optimised, floors ceiling-to-floor apart."""
+    import json
+
+    from housescan_tpu_torch.kinfu.building import cantor_slots_3d, scan_building
+
+    scene, fitted, out = scan_building(_sweep_buildings_rooms(6, cuda), tmp_path / "bld",
+                                       config=_grid_config(), gap=0.1, layout="grid", floors=3,
+                                       device=cuda)
+    bc = json.loads((out / "building_checkpoint.json").read_text())
+    assert set(bc["fit_rmse"]) == {f"room{i}" for i in range(6)}
+    assert bc["n_wall_connections"] == 7
+    assert sum(nc for axis, nc, _ in bc["optimize"] if axis == "Y") >= 4, bc["optimize"]
+    by_slot = {s: i for i, s in enumerate(cantor_slots_3d(6, 3))}
+    n_checked = 0
+    for (gx, fl, gz), i in by_slot.items():
+        j = by_slot.get((gx, fl + 1, gz))
+        if j is not None:
+            off = float(fitted[j].mean()[1] - fitted[i].mean()[1])
+            assert -2.7 < off < -1.9, f"floor {fl}->{fl + 1} at ({gx},{gz}): Y offset {off:.2f} m"
+            n_checked += 1
+        j = by_slot.get((gx + 1, fl, gz))
+        if j is not None:
+            off = float(fitted[j].mean()[0] - fitted[i].mean()[0])
+            assert 2.3 < off < 3.1, f"X offset {off:.2f} m on floor {fl}"
+    assert n_checked == 4

@@ -201,8 +201,9 @@ def test_port_imports_no_jax():
         "from housescan_tpu_torch.ops import tsdf_integrate_pallas\n"
         "import housescan_tpu_torch.rooms, housescan_tpu_torch.solvers, housescan_tpu_torch.utils\n"
         "import housescan_tpu_torch.geometry, housescan_tpu_torch.io.xf, housescan_tpu_torch.testing\n"
+        "import housescan_tpu_torch.parallel, housescan_tpu_torch.kinfu.building\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'housescan_tpu.'))"
-        " or m == 'housescan_tpu']\n"
+        " or m == 'housescan_tpu' or m.split('.')[0] == 'ml_dtypes']\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -136,7 +136,7 @@ def test_integrate_slabs_bit_identical_to_one_pass(stream, monkeypatch):
 
 def test_volume_layouts_and_config(stream):
     """Both layouts read alike through the properties; ``from_config``
-    picks the layout by name and refuses bfloat16."""
+    picks the layout by name, bfloat16 included."""
     from housescan_tpu_torch.config import TsdfConfig
 
     poses, frames = stream
@@ -157,8 +157,8 @@ def test_volume_layouts_and_config(stream):
     cfg = TsdfConfig(resolution=64, size_m=3.0, trunc_dist=TRUNC)
     assert tsdf.from_config(cfg, device="cpu").data.dtype == torch.float32
     assert tsdf.from_config(TsdfConfig(resolution=64, dtype="packed_i16"), device="cpu").packed_i32
-    with pytest.raises(NotImplementedError):
-        tsdf.from_config(TsdfConfig(resolution=64, dtype="bfloat16"), device="cpu")
+    bf = tsdf.from_config(TsdfConfig(resolution=64, dtype="bfloat16"), device="cpu")
+    assert bf.data.dtype == torch.bfloat16 and bf.data.shape == (2, 64, 64, 64)
 
 
 # --- samples and the ray marcher -------------------------------------------
