@@ -155,7 +155,33 @@ float32 volume. Phases, each fatal on failure:
      ``build/chip_smoke/building_<route>``, with tests/test_building.py's
      end-to-end assertions; both routes finish the same rooms with the
      same wall connections and place them within 2 mm (``run_building``
-     derives the bound); the host seconds of each phase.
+     derives the bound); the host seconds of each phase;
+ 19. cli: the command line (``housescan_tpu_torch.cli.main``) in this
+     process, every command's host seconds printed, its outputs in
+     ``build/chip_smoke/cli``: the bench orbit recorded as uint16 mm;
+     ``scan --mesh --checkpoint-every 10`` at ``Config()`` (512^3, from
+     the identity pose, as the command line starts): K1 and K3-K6
+     launched and no plain version, the trajectory equal to
+     ``scan_to_room_dir``'s with the same arguments (``run_cli`` says why
+     not the 5 mm budget), the room directory loading, the
+     scan-checkpoint writes timed, then ``--resume`` reproducing the
+     trajectory; ``scan --live`` over ``HOUSESCAN_FAKE_DEVICE`` = the
+     recording, unpaced and paced (``--realtime``): the source opened,
+     every frame read fused (the frames matched to the recording) and the
+     trajectory equal to ``scan_to_room_dir``'s on the frames read; the
+     room stage on the scanned room and
+     phase 15's two rooms (``add-room``, ``suggest``, ``accept-corner``
+     where needed, ``fit-cuboid``, ``auto-align``, ``move``, ``connect``,
+     ``optimize``, ``export --full-res``, ``render``, ``info``), the
+     scene-checkpoint writes timed, the scene round-tripping, the .xf
+     files parsing, the image not empty; ``detect-planes``;
+     ``scan-building --sharded --known-poses`` over phase 18's rooms on
+     the visible cards; ``refuse --devices 2x2`` with ``--device
+     cuda:0``; two steps under ``utils.metrics.device_trace`` (the trace
+     names K1 and K3-K6; ``tsdf_occupancy`` equals a CPU count);
+     ``store_state``, ``reload_framework``, ``get_state`` and the step
+     after the reload bit-identical to the one before; then
+     ``dryrun_multichip(4, device="cuda:0")``.
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
@@ -174,8 +200,9 @@ Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
 path's run: the scan's for the kernel path, the timed xla-480 pass for
 K2, the dense-512 run for K7 and K8; ``launches_sharded``: the free
-sharded-512 run's; the rows ``...@bf16``: K4 and K5 on box-512-bf16's
-timed pass, K7 in its oracle run); the last line is ``{"ok": true,
+sharded-512 run's; ``launches_cli``: phase 19's; the rows ``...@bf16``:
+K4 and K5 on box-512-bf16's timed pass, K7 in its oracle run); the last
+line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -2164,6 +2191,430 @@ def run_building(intr, device, card):
         fail("building: the sharded route's building differs from the single-device one's")
 
 
+# The device kernels' symbols of the kernel path, which phase 19's device
+# trace must name.
+TRACE_KERNELS = {"bilateral": "bilateral_kernel", "icp_level": "icp_level_kernel",
+                 "tsdf_stream": "tsdf_stream_kernel", "tsdf_free": "tsdf_free_kernel",
+                 "raycast_tiles": "raycast_tiles_kernel"}
+
+
+def cli(args, what, secs, card, device="cuda"):
+    """``housescan_tpu_torch.cli.main(["--device", device, *args])`` in this
+    process; returns its standard output. A command that exits (the CLI's
+    SystemExit on a refused input) fails the phase. Prints and records the
+    command's host seconds."""
+    import contextlib
+    import io
+
+    from housescan_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_main(["--device", device, *args])
+    except SystemExit as e:
+        fail(f"cli {what}: exited ({e}); output: {buf.getvalue()[-2000:]}")
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    secs[what] = secs.get(what, 0.0) + dt
+    out = buf.getvalue()
+    print(f"# cli {what}: {dt:.4f} s [{card}]; " + " | ".join(out.strip().splitlines()[-3:]),
+          flush=True)
+    return out
+
+
+def timed_calls(module, name, store):
+    """Wrap ``module.name`` so each call's host seconds land in ``store``;
+    returns a function that restores it."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            store.append(time.perf_counter() - t0)
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def relative_error_mm(traj, truth, first):
+    """Translation error of the last trajectory row against the true
+    motion from the first fused frame (``first``, a true pose) to
+    ``truth``: a scan with no initial pose starts at the identity."""
+    want = truth.astype(np.float64) @ np.linalg.inv(first.astype(np.float64))
+    return float(np.linalg.norm(traj[-1, 3, :3] - want[3, :3])) * 1000.0
+
+
+def library_trajectory(frames, intr, cfg, out, device):
+    """``scan_to_room_dir`` called directly on ``frames`` (host float32
+    meters) with the command line's arguments: no initial pose, so the
+    identity. Returns its trajectory."""
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+
+    d = scan_to_room_dir(DepthStream(frames=np.asarray(frames), intrinsics=intr), out,
+                         config=cfg, device=device)
+    return np.load(os.path.join(d, "trajectory.npz"))["poses"]
+
+
+def cli_live(stream_path, frames_mm, poses, out, secs, card, flags, device, realtime, intr, cfg,
+             uncounted):
+    """``scan --live`` over ``HOUSESCAN_FAKE_DEVICE`` = the recording; the
+    frames the scan read are matched to the recording by their pixels.
+    Fails unless the live source opened, every frame read was fused, and
+    the trajectory equals ``scan_to_room_dir``'s on the frames read."""
+    from housescan_tpu_torch.capture import live
+
+    reads = []
+    orig_read = live.LiveSource.read
+
+    def recording_read(self):
+        frame = orig_read(self)
+        if frame is not None:
+            reads.append(frame)
+        return frame
+
+    opened = []
+    orig_open = live.open_live_source
+
+    def recording_open(*a, **k):
+        src = orig_open(*a, **k)
+        opened.append(src)
+        return src
+
+    live.LiveSource.read = recording_read
+    live.open_live_source = recording_open
+    os.environ["HOUSESCAN_FAKE_DEVICE"] = stream_path
+    tag = "scan --live --realtime" if realtime else "scan --live"
+    try:
+        text = cli(["scan", "--live", "--max-frames", str(len(frames_mm)), *flags,
+                    *(["--realtime"] if realtime else []), out], tag, secs, card, device)
+    finally:
+        live.LiveSource.read = orig_read
+        live.open_live_source = orig_open
+        del os.environ["HOUSESCAN_FAKE_DEVICE"]
+    if not opened or opened[0] is None:
+        fail(f"cli {tag}: open_live_source returned None")
+    src = opened[0]
+    idx = []
+    for f in reads:
+        mm = np.round(f / 0.001).astype(np.uint16)
+        hits = [i for i in range(len(frames_mm)) if np.array_equal(mm, frames_mm[i])]
+        if not hits:
+            fail(f"cli {tag}: a frame read matches no recorded frame")
+        idx.append(hits[0])
+    traj = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    err = relative_error_mm(traj, poses[idx[-1]], poses[idx[0]])
+    lib = uncounted(library_trajectory, reads, intr, cfg, out + "_library", device)
+    d_lib = float(np.abs(lib - traj).max()) if lib.shape == traj.shape else float("inf")
+    print(f"# cli {tag}: read {src.frames_read} frames {idx} (dropped {src.dropped}), fused "
+          f"{len(traj)}, the trajectory within {d_lib:.3e} of scan_to_room_dir's on the frames "
+          f"read; pose error {err:.3f} mm from frame {idx[0]} (identity start) [{card}]",
+          flush=True)
+    if not (src.frames_read == len(reads) == len(traj) >= 1) or \
+            f"fused {src.frames_read} frames" not in text:
+        fail(f"cli {tag}: {src.frames_read} frames read, {len(traj)} fused")
+    if d_lib > 1e-6:
+        fail(f"cli {tag}: the trajectory differs from scan_to_room_dir's by {d_lib}")
+    return dict(read=src.frames_read, dropped=src.dropped, err_mm=err, library_diff=d_lib)
+
+
+def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_dir=None):
+    """Phase 19: the command line on the card, in this process (see the
+    module docstring). ``flags`` are the volume flags of every scanning
+    command and ``cfg`` the ``Config`` they make (none: ``Config()``,
+    512^3); ``rooms_dir`` holds phase 15's scanned rooms. Returns the
+    phase's launches.
+
+    The command line starts a scan at the identity pose. From there the
+    bench orbit's motion is not tracked, in the JAX package's scan as in
+    the port's (the orbit turns about a point 0.25 m behind the camera;
+    from the identity its x motion is lost: 95 mm over the 20 frames), so
+    a command's scan is held to ``scan_to_room_dir`` called directly with
+    the command's arguments (the same trajectory within 1e-6), and phase
+    8 holds that function to the 5 mm budget from the first frame's pose.
+    The identity start's pose error is printed."""
+    import importlib
+
+    from housescan_tpu_torch.capture.replay import record_stream
+    from housescan_tpu_torch.io import checkpoint
+    from housescan_tpu_torch.io.checkpoint import load_scene, save_scene
+    from housescan_tpu_torch.io.xf import load_xf
+    from housescan_tpu_torch.kinfu import scan
+    from housescan_tpu_torch.kinfu.synthetic import furnished_room, render_depth_stream
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.rooms import load_room
+    from housescan_tpu_torch.rooms.types import Scene
+
+    from housescan_tpu_torch.config import Config
+
+    cfg = cfg or Config()
+    on_card = device.startswith("cuda")
+    out = os.path.join(OUT, "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    flags = list(flags)
+    secs, launches, plain_runs = {}, dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+
+    def uncounted(fn, *args):
+        """``fn(*args)`` with the counters left as they were: a comparison,
+        not the command line."""
+        lib = sys.modules["housescan_tpu_torch.ops.cuda_lib"]
+        saved = dict(lib.launch_counts), dict(lib.plain_counts)
+        out = fn(*args)
+        lib.launch_counts.update(saved[0])
+        lib.plain_counts.update(saved[1])
+        return out
+
+    def take_counts():
+        """Add the counters to the phase's and set them to 0; returns the
+        plain versions run since the last call."""
+        lib = sys.modules["housescan_tpu_torch.ops.cuda_lib"]  # a reload rebinds its counters
+        plain = dict(lib.plain_counts)
+        for k in KERNELS:
+            launches[k] += lib.launch_counts[k]
+            plain_runs[k] += plain[k]
+        lib.reset_counts()
+        return plain
+
+    # 1. the bench orbit, recorded as uint16 mm with its poses
+    orbit = str(record_stream(os.path.join(out, "orbit.npz"), frames, intr, poses=poses))
+    frames_mm = np.load(orbit)["depth_mm"]
+    scene_path = os.path.join(out, "scene.housescan")
+    room_a = os.path.join(out, "room_a")
+
+    # 2. scan with a mesh and a checkpoint every 10 frames, then resume
+    cuda_lib.reset_counts()  # what earlier phases launched is not this phase's
+    scan_ckpt, scene_ckpt = [], []
+    restore = [timed_calls(scan, "save_scan_state", scan_ckpt),
+               timed_calls(checkpoint, "save_scene", scene_ckpt)]
+    try:
+        take_counts()
+        cli(["--scene", scene_path, "scan", orbit, room_a, "--mesh", "--checkpoint-every", "10",
+             *flags], "scan", secs, card, device)
+        scan_launches = dict(launches)
+        plain = take_counts()
+        scan_launches = {k: launches[k] - scan_launches[k] for k in KERNELS}
+        if on_card:
+            check_counts("cli scan", scan_launches, plain, cuda_lib.KERNEL_PATH)
+        traj = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
+        err = relative_error_mm(traj, poses[-1], poses[0])
+        lib = uncounted(library_trajectory, frames_mm.astype(np.float32) * np.float32(0.001),
+                        intr, cfg, os.path.join(out, "room_a_library"), device)
+        d_lib = float(np.abs(lib - traj).max()) if lib.shape == traj.shape else float("inf")
+        if traj.shape[0] != len(poses) or d_lib > 1e-6:
+            fail(f"cli scan: {traj.shape[0]} poses, {d_lib} from scan_to_room_dir's trajectory")
+        room = load_room(Scene(device=device), room_a)
+        if len(room.planes) < 2 or len(room.cloud.points) < 1000:
+            fail(f"cli scan: room_a has {len(room.planes)} planes, {len(room.cloud.points)} points")
+        ck_bytes = os.path.getsize(os.path.join(room_a, "scan_checkpoint.npz"))
+        cli(["--scene", scene_path, "scan", orbit, room_a, "--resume", "--checkpoint-every", "10",
+             *flags], "scan --resume", secs, card, device)
+        traj2 = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
+        resume_err = float(np.abs(traj2 - traj).max())
+        print(f"# cli scan: the trajectory within {d_lib:.3e} of scan_to_room_dir's; pose "
+              f"error {err:.3f} mm (from the identity start), {len(room.planes)} planes; scan checkpoint writes {len(scan_ckpt)} x "
+              f"{[f'{s:.4f}' for s in scan_ckpt]} s ({ck_bytes} bytes); the resumed "
+              f"trajectory within {resume_err:.3e} of the first [{card}]", flush=True)
+        if traj2.shape != traj.shape or resume_err > 1e-6:
+            fail(f"cli scan --resume: the trajectory moved by {resume_err}")
+
+        # 3. the live scan over the recording, unpaced and paced at 30 fps
+        live_stats = [cli_live(orbit, frames_mm, poses, os.path.join(out, f"room_live{k}"),
+                               secs, card, flags, device, bool(k), intr, cfg, uncounted)
+                      for k in (0, 1)]
+        take_counts()
+
+        # 4. the room stage on room_a and phase 15's two scanned rooms
+        dirs = [os.path.join(rooms_dir, f"scan{ri}") for ri in range(2)]
+        for d in (room_a, *dirs):
+            cli(["--scene", scene_path, "add-room", d], "add-room", secs, card, device)
+        sc = load_scene(scene_path, device="cpu")
+        ids = sorted(sc.rooms)
+        for rid in ids:
+            cli(["--scene", scene_path, "suggest", "--room", str(rid), "--cutoff", "1.3"],
+                "suggest", secs, card, device)
+        # as room_cycle: where suggest left fewer than 8 corners, accept the
+        # suggestions nearest the cloud's bounding-box corners
+        from itertools import product
+
+        sc = load_scene(scene_path, device="cpu")
+        for rid in ids[1:]:
+            r = sc.rooms[rid]
+            if len(r.corners) == 8:
+                continue
+            lo, hi = r.cloud.points.min(0), r.cloud.points.max(0)
+            for sx, sy, sz in product((0, 1), repeat=3):
+                target = np.array([[lo[0], hi[0]][sx], [lo[1], hi[1]][sy], [lo[2], hi[2]][sz]])
+                sid, spt = min(r.suggested_corners, key=lambda s: np.linalg.norm(s[1] - target))
+                r.suggested_corners = [s for s in r.suggested_corners if s[0] != sid]
+                cli(["--scene", scene_path, "accept-corner", "--room", str(rid), str(sid)],
+                    "accept-corner", secs, card, device)
+        for rid in ids[1:]:
+            cli(["--scene", scene_path, "fit-cuboid", "--room", str(rid)], "fit-cuboid", secs,
+                card, device)
+            cli(["--scene", scene_path, "auto-align", "--room", str(rid)], "auto-align", secs,
+                card, device)
+        cli(["--scene", scene_path, "move", "--room", str(ids[2]), "3", "0", "0"], "move", secs,
+            card, device)
+        sc = load_scene(scene_path, device="cpu")
+        p0 = min(sc.rooms[ids[1]].planes, key=lambda p: p.normal[0])
+        p1 = max(sc.rooms[ids[2]].planes, key=lambda p: p.normal[0])
+        cli(["--scene", scene_path, "connect", str(p0.plane_id), str(p1.plane_id)], "connect",
+            secs, card, device)
+        text = cli(["--scene", scene_path, "optimize"], "optimize", secs, card, device)
+        if "aligned" not in text:
+            fail("cli optimize: no wall connection was optimised")
+        export = os.path.join(out, "export")
+        cli(["--scene", scene_path, "export", "--out", export, "--full-res"], "export", secs,
+            card, device)
+        image = os.path.join(out, "scene.ppm")
+        cli(["--scene", scene_path, "render", "--out", image, "--width", "640", "--height", "480"],
+            "render", secs, card, device)
+        info = cli(["--scene", scene_path, "info"], "info", secs, card, device)
+    finally:
+        for r in restore:
+            r()
+    sc = load_scene(scene_path, device="cpu")
+    again = os.path.join(out, "scene_again.housescan")
+    save_scene(sc, again)
+    sc2 = load_scene(again, device="cpu")
+    same = sc2.next_id == sc.next_id and sorted(sc2.rooms) == sorted(sc.rooms) and all(
+        np.array_equal(sc.rooms[r].cloud.points, sc2.rooms[r].cloud.points)
+        and np.array_equal(sc.rooms[r].proj, sc2.rooms[r].proj)
+        and [p.plane_id for p in sc.rooms[r].planes] == [p.plane_id for p in sc2.rooms[r].planes]
+        for r in sc.rooms)
+    xfs = sorted(os.listdir(os.path.join(export, "xf")))
+    xf_ok = len(xfs) == 3 and all(np.isfinite(load_xf(os.path.join(export, "xf", x))).all()
+                                  for x in xfs)
+    with open(image, "rb") as f:
+        data = f.read()
+    head = b"P6\n640 480\n255\n"
+    img = np.frombuffer(data[len(head):], np.uint8).reshape(480, 640, 3)
+    nonbg = float((np.abs(img.astype(int) - 20) > 4).any(axis=-1).mean())
+    placed = sorted(x for x in os.listdir(export) if x.endswith("-placed.ply"))
+    fitted = [len(sc.rooms[r].corners) for r in ids]
+    print(f"# cli room stage: {len(sc.rooms)} rooms, corners {fitted}, "
+          f"{len(sc.connected_walls)} wall connection(s), {len(xfs)} .xf files, placed {placed}, "
+          f"image non-background {nonbg:.3f}; scene round-trips {same}; scene checkpoint writes "
+          f"{len(scene_ckpt)} x {np.mean(scene_ckpt):.4f} s (max {max(scene_ckpt):.4f}, "
+          f"{os.path.getsize(scene_path)} bytes) [{card}]", flush=True)
+    if not (same and xf_ok and data.startswith(head) and nonbg > 0.05 and len(placed) == 3
+            and len(sc.connected_walls) == 1 and info.startswith("scene: 3 rooms")):
+        fail("cli room stage: the scene, the .xf files, the export or the image is wrong")
+
+    # 5. planes of the scanned cloud
+    text = cli(["detect-planes", os.path.join(room_a, "cloud_downsampled.pcd")], "detect-planes",
+               secs, card, device)
+    if int(text.split("detected ")[1].split()[0]) < 2:
+        fail(f"cli detect-planes: {text.strip()}")
+
+    # 6. and 7. phase 18's two rooms: scan-building on the visible cards,
+    # then the 2 x 2 rooms x slabs re-fuse with every slab on one device
+    half, boxes = furnished_room()
+    streams, trajs = [], []
+    for ri in range(2):
+        rp = room_poses(ri)
+        rf = render_depth_stream(intr, rp, half, boxes, seed=ri, device=device)
+        streams.append(str(record_stream(os.path.join(out, f"room{ri}.npz"), rf, intr, poses=rp)))
+        trajs.append(os.path.join(out, f"room{ri}_poses.npz"))
+        np.savez(trajs[-1], poses=rp)
+        del rf
+    take_counts()
+    building = os.path.join(out, "building")
+    text = cli(["--scene", os.path.join(out, "building.housescan"), "scan-building", "--sharded",
+                "--known-poses", building, *streams, *flags], "scan-building --sharded", secs,
+               card, device)
+    bc = json.loads(open(os.path.join(building, "building_checkpoint.json")).read())
+    if bc["rooms_done"] != ["room0", "room1"] or bc["n_wall_connections"] < 1:
+        fail(f"cli scan-building: {bc}")
+    take_counts()
+    refuse_dev = "cuda:0" if on_card else device
+    refused = os.path.join(out, "refused")
+    cli(["refuse", refused, *streams, "--trajectories", *trajs, "--devices", "2x2", *flags],
+        "refuse --devices 2x2", secs, card, refuse_dev)
+    for ri in range(2):
+        t = np.load(os.path.join(refused, f"room{ri}", "trajectory.npz"))["poses"]
+        if t.shape != (32, 4, 4) or not os.path.exists(os.path.join(refused, f"room{ri}",
+                                                                     "planes.txt")):
+            fail(f"cli refuse: room{ri} malformed")
+    take_counts()
+
+    # 8. two steps under the device trace; the occupancy against a CPU count
+    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+    from housescan_tpu_torch.utils.metrics import device_trace, tsdf_occupancy
+
+    res = int(flags[flags.index("--resolution") + 1]) if "--resolution" in flags else RES
+    st = kinfu_init(intr, resolution=res, size_m=3.0, trunc=0.03, init_pose=poses[0],
+                    device=device)
+    for f in frames[:2]:
+        st = kinfu_step(st, f, intr)
+    trace_dir = os.path.join(out, "trace")
+    with device_trace(trace_dir):
+        # two steps: a trace can miss the kernels of its first moments
+        for f in frames[2:4]:
+            st = kinfu_step(st, f, intr)
+        if on_card:
+            torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: any(sym in n for n in names) for k, sym in TRACE_KERNELS.items()}
+    occ = tsdf_occupancy(st.volume)
+    cpu_occ = int((st.volume.weight.cpu() > 0).sum()) / st.volume.weight.numel()
+    print(f"# cli device trace of two steps: {len(events)} events, {len(names)} kernel names, "
+          f"path kernels named {named}; occupancy {occ:.6f} (CPU count {cpu_occ:.6f}) [{card}]",
+          flush=True)
+    if (on_card and not all(named.values())) or occ != cpu_occ:
+        fail(f"cli device trace: a kernel of the path is missing ({sorted(names)[:40]}), or the "
+             "occupancy differs")
+
+    # 9. state across a reload of the package; the step after it bit-identical
+    from housescan_tpu_torch.devloop import get_state, reload_framework, store_state
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return type(x)(*map(clone, x)) if isinstance(x, tuple) else x
+
+    before = kinfu_step(clone(st), frames[4], intr)
+    store_state(sc)
+    take_counts()
+    n_reloaded = reload_framework()
+    restored = get_state()
+    pipeline = importlib.import_module("housescan_tpu_torch.kinfu.pipeline")
+    after = pipeline.kinfu_step(clone(st), frames[4], intr)
+    identical = all(torch.equal(getattr(before, k), getattr(after, k))
+                    for k in ("pose", "planes", "model_maps")) and \
+        torch.equal(before.volume.data, after.volume.data)
+    print(f"# cli devloop: {n_reloaded} modules reloaded, state restored "
+          f"{restored is sc}, the step after the reload bit-identical {identical} [{card}]",
+          flush=True)
+    if n_reloaded <= 10 or restored is not sc or pipeline.kinfu_step is kinfu_step or not identical:
+        fail("cli devloop: the reload lost the state or changed the step")
+    del st, before, after
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 10. the multi-device dry run, its 4 devices one card
+    t0 = time.perf_counter()
+    dryrun = importlib.import_module("housescan_tpu_torch.parallel.dryrun")
+    dry = dryrun.dryrun_multichip(4, device="cuda:0" if on_card else device)
+    print(f"# cli dryrun_multichip(4): {time.perf_counter() - t0:.4f} s, {json.dumps(dry)} "
+          f"[{card}]", flush=True)
+    take_counts()
+    if on_card and any(plain_runs.values()):
+        fail(f"cli: plain versions ran {plain_runs}")
+    print(f"# cli phase: host seconds " + " ".join(f"{k} {v:.4f}" for k, v in secs.items())
+          + f"; live {json.dumps(live_stats)}; launches {json.dumps(launches)} [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2305,6 +2756,13 @@ def main() -> None:
     # 18. building: scan_building at Config() on two rooms, without and with the mesh
     run_building(intr, device, card)
     mark(18, t_start)
+
+    # 19. the command line on the card, in this process
+    cli_launches = run_cli(intr, poses, frames, card, rooms_dir=os.path.join(OUT, "rooms"))
+    for row in rows:
+        if "@" not in row["name"]:
+            row["launches_cli"] = cli_launches[row["name"]]
+    mark(19, t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -15,3 +15,7 @@ kernel built from ``csrc/`` (``ops/cuda_lib.py``) or raises.
 
 This package imports neither ``jax`` nor ``housescan_tpu``.
 """
+
+__version__ = "0.1.0"
+
+from housescan_tpu_torch import geometry, solvers, utils  # noqa: E402,F401

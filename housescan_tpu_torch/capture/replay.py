@@ -4,7 +4,7 @@ A copy of ``housescan_tpu/capture/replay.py``. A stream is a .npz of
 uint16 millimeter frames (the Kinect wire format) plus intrinsics and,
 when known, the ground-truth poses; frames load to host float32 meters
 (``raw.astype(np.float32) * scale``) and go to the device one at a time in
-the scan loop. The live-device source is not ported.
+the scan loop. The live device is ``capture/live.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
+from housescan_tpu_torch.config import CameraConfig
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.preprocess import depth_to_vertices
 
@@ -140,6 +141,21 @@ class PrefetchingSource:
         """Stop the worker and wait for it."""
         self._stop.set()
         self._thread.join(timeout)
+
+
+def take_depth_snapshot(config: Optional[CameraConfig] = None) -> Optional[np.ndarray]:
+    """One depth frame in meters from the best live device
+    (``capture/live.py``: a real OpenNI camera, or the
+    ``HOUSESCAN_FAKE_DEVICE`` recorded-device fixture); None, with a
+    warning, when no device binds."""
+    from housescan_tpu_torch.capture.live import open_live_source
+
+    src = open_live_source(config)
+    if src is None:
+        return None
+    frame = src.read()
+    src.stop()
+    return frame
 
 
 def depth_frame_to_cloud(depth: np.ndarray, intr: Intrinsics) -> np.ndarray:

@@ -124,7 +124,7 @@ def rotation_between_normals(n1: torch.Tensor, n2: torch.Tensor) -> torch.Tensor
 # --- 4x4 transforms (row-vector convention, translation in the last row) ---
 
 
-def identity_proj4(dtype=torch.float32, device="cuda") -> torch.Tensor:
+def identity_proj4(dtype=torch.float32, *, device="cuda") -> torch.Tensor:
     return torch.eye(4, dtype=dtype, device=on_device(device))
 
 

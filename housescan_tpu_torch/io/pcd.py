@@ -1,8 +1,9 @@
 """PCL .pcd point-cloud reader and writer (host numpy).
 
-A copy of ``housescan_tpu/io/pcd.py`` for the ``ascii`` and ``binary``
-DATA encodings, byte-for-byte the same output. The ``binary_compressed``
-encoding (LZF) is not ported: the scan writes ``binary`` clouds.
+A copy of ``housescan_tpu/io/pcd.py``, byte-for-byte the same output, for
+all three PCL DATA encodings: ``ascii``, ``binary`` and
+``binary_compressed`` (LZF over the field-major plaintext; the codec is
+``io/native.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from pathlib import Path
 from typing import Dict, Optional, Union
 
 import numpy as np
+
+from housescan_tpu_torch.io import native
 
 _PCD_DTYPES = {
     ("F", 4): "<f4",
@@ -66,7 +69,8 @@ def _parse_header(data: bytes):
 
 
 def load_pcd(path: Union[str, Path]) -> PointCloud:
-    """Load an ascii or binary .pcd file into a PointCloud."""
+    """Load an ascii, binary or binary_compressed .pcd file into a
+    PointCloud."""
     data = Path(path).read_bytes()
     header, payload_start = _parse_header(data)
     try:
@@ -90,12 +94,10 @@ def load_pcd(path: Union[str, Path]) -> PointCloud:
     if mode == "ascii":
         ncols = sum(counts)
         try:
-            values = np.array(data[payload_start:].split(), dtype=np.float64)
-        except ValueError:
-            raise PcdFormatError("PCD ascii payload: malformed numeric token") from None
-        if values.size != n_points * ncols:
-            raise PcdFormatError(f"PCD ascii payload: expected {n_points * ncols} floats, got {values.size}")
-        table = values.reshape(n_points, ncols)
+            values = native.parse_ascii_floats(data[payload_start:], n_points * ncols)
+        except ValueError as e:
+            raise PcdFormatError(f"PCD ascii payload: {e}") from None
+        table = values.astype(np.float64).reshape(n_points, ncols)
         rec = np.empty(n_points, dtype=dtype)
         col = 0
         for name, count in zip(fields, counts):
@@ -110,8 +112,38 @@ def load_pcd(path: Union[str, Path]) -> PointCloud:
                 f"PCD binary payload truncated: {len(payload)} bytes, expected {need}"
             )
         rec = np.frombuffer(payload, dtype=dtype, count=n_points)
+    elif mode == "binary_compressed":
+        # PCL layout: u32 compressed size, u32 uncompressed size, then an
+        # LZF blob whose plaintext is field-major: all x's, then all y's, ...
+        head = data[payload_start : payload_start + 8]
+        if len(head) < 8:
+            raise PcdFormatError("binary_compressed PCD missing size header")
+        comp_size, uncomp_size = np.frombuffer(head, "<u4", 2)
+        blob = data[payload_start + 8 : payload_start + 8 + int(comp_size)]
+        if len(blob) < comp_size:
+            raise PcdFormatError(
+                f"binary_compressed payload truncated: {len(blob)} bytes, "
+                f"expected {int(comp_size)}"
+            )
+        expect = n_points * dtype.itemsize
+        if int(uncomp_size) != expect:
+            raise PcdFormatError(
+                f"binary_compressed size mismatch: header says "
+                f"{int(uncomp_size)}, fields need {expect}"
+            )
+        try:
+            raw = native.lzf_decompress(bytes(blob), int(uncomp_size))
+        except ValueError as e:
+            raise PcdFormatError(f"binary_compressed payload: {e}") from None
+        rec = np.empty(n_points, dtype=dtype)
+        off = 0
+        for name, count, typ, size in zip(fields, counts, types, sizes):
+            nbytes = count * size * n_points
+            block = np.frombuffer(raw[off : off + nbytes], _PCD_DTYPES[(typ, size)])
+            rec[name] = block.reshape(rec[name].shape, order="C")
+            off += nbytes
     else:
-        raise PcdFormatError(f"PCD DATA mode {mode!r} is not supported here")
+        raise PcdFormatError(f"unknown PCD DATA mode {mode!r}")
 
     for axis in ("x", "y", "z"):
         if axis not in rec.dtype.names:
@@ -149,8 +181,11 @@ def save_pcd(
     path: Union[str, Path],
     cloud: Union[PointCloud, np.ndarray],
     binary: bool = True,
+    compressed: bool = False,
 ) -> None:
-    """Write a PointCloud (or raw (N, 3) array) as .pcd."""
+    """Write a PointCloud (or raw (N, 3) array) as .pcd. ``compressed=True``
+    writes PCL's ``binary_compressed`` encoding (LZF over the field-major
+    plaintext)."""
     if isinstance(cloud, np.ndarray):
         cloud = PointCloud(points=np.asarray(cloud, np.float32))
     n = len(cloud)
@@ -180,7 +215,10 @@ def save_pcd(
     sizes = " ".join("4" for _ in fields)
     types = " ".join("F" for _ in fields)
     counts = " ".join("1" for _ in fields)
-    mode = "binary" if binary else "ascii"
+    if compressed:
+        mode = "binary_compressed"
+    else:
+        mode = "binary" if binary else "ascii"
     header = (
         "# .PCD v0.7 - Point Cloud Data file format\n"
         "VERSION 0.7\n"
@@ -195,7 +233,12 @@ def save_pcd(
         f"DATA {mode}\n"
     )
     path = Path(path)
-    if binary:
+    if compressed:
+        soa = b"".join(np.ascontiguousarray(rec[name]).tobytes() for name in rec.dtype.names)
+        blob = native.lzf_compress(soa)
+        sizes_hdr = np.array([len(blob), len(soa)], "<u4").tobytes()
+        path.write_bytes(header.encode("ascii") + sizes_hdr + blob)
+    elif binary:
         path.write_bytes(header.encode("ascii") + rec.tobytes())
     else:
         rows = [" ".join(repr(float(rec[name][i])) for name in rec.dtype.names) for i in range(n)]

@@ -144,6 +144,7 @@ def scan_building(
     progress: bool = False,
     write_mesh: bool = False,
     gap: float = 0.1,
+    *,
     layout: str = "chain",
     floors=1,
     device="cuda",

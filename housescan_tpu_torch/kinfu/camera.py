@@ -37,7 +37,7 @@ class Intrinsics(NamedTuple):
         )
 
 
-def pixel_rays(intr: Intrinsics, dtype=torch.float32, device=None) -> torch.Tensor:
+def pixel_rays(intr: Intrinsics, dtype=torch.float32, *, device=None) -> torch.Tensor:
     """(H, W, 3) camera-frame ray directions with z = 1."""
     u = torch.arange(intr.width, dtype=dtype, device=device)
     v = torch.arange(intr.height, dtype=dtype, device=device)
@@ -55,3 +55,7 @@ def project(
     u = intr.fx * points_cam[..., 0] / safe_z + intr.cx
     v = intr.fy * points_cam[..., 1] / safe_z + intr.cy
     return u, v, z > 1e-6
+
+
+def in_bounds(intr: Intrinsics, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (u >= 0) & (u <= intr.width - 1) & (v >= 0) & (v <= intr.height - 1)

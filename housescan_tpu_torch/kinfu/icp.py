@@ -21,7 +21,7 @@ Two paths, as in the reference (``housescan_tpu/kinfu/icp.py``):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -197,18 +197,24 @@ def icp_track(
     iterations: Sequence[int] = (10, 5, 4),
     dist_threshold=0.10,
     angle_threshold: float = 0.5236,
-    tight_threshold=None,
+    init_pose: Optional[torch.Tensor] = None,
+    windows: Sequence[int] = WINDOWS,
+    dampings: Sequence[float] = DAMPINGS,
     use_pallas: bool = True,
+    *,
+    tight_threshold=None,
 ) -> IcpResult:
     """Track one frame. ``live_maps``/``model_maps`` are per-level
     channel-major (6, h, w) / (8, h, w) maps, level 0 = finest; the pose
-    starts at ``prev_pose``, the model maps' render pose. ``iterations``
-    and a sequence ``dist_threshold`` are indexed by level like WINDOWS
-    and DAMPINGS, finest first; levels run coarse to fine.
-    ``tight_threshold`` enables the adaptive gate. ``use_pallas`` picks
-    the kernel path (K3) or the XLA path (torch ops + K2)."""
+    starts at ``init_pose`` (default ``prev_pose``, the model maps'
+    render pose). ``iterations``, ``windows``, ``dampings`` and a
+    sequence ``dist_threshold`` are indexed by level, finest first (a
+    sequence shorter than the pyramid gives every level its last entry);
+    levels run coarse to fine. ``tight_threshold`` enables the adaptive
+    gate. ``use_pallas`` picks the kernel path (K3) or the XLA path
+    (torch ops + K2)."""
     n_levels = len(live_maps)
-    pose = prev_pose
+    pose = prev_pose if init_pose is None else init_pose
     dev = prev_pose.device
     rmse = torch.zeros((), dtype=torch.float32, device=dev)
     n_corr = torch.zeros((), dtype=torch.int32, device=dev)
@@ -237,16 +243,16 @@ def icp_track(
                 prev_pose,
                 intr.level(level),
                 n_iters=iters,
-                window=per_level(WINDOWS, level),
+                window=per_level(windows, level),
                 dist_threshold=dist,
                 angle_threshold=angle_threshold,
-                damping=per_level(DAMPINGS, level),
+                damping=per_level(dampings, level),
                 tight_threshold=tight_threshold,
             )
         else:
             pose, lvl_rmse, lvl_corr = _xla_level(
                 live_maps[level], model_maps[level], pose, prev_pose, intr.level(level), iters,
-                per_level(WINDOWS, level), per_level(DAMPINGS, level), dist, angle_threshold,
+                per_level(windows, level), per_level(dampings, level), dist, angle_threshold,
                 tight_threshold,
             )
         # report the finest level that had correspondences

@@ -21,6 +21,8 @@ the reference computes this in XLA, outside any Pallas kernel.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -123,9 +125,12 @@ def _cell_triangles(corner_t, base, origin, voxel_size):
     return torch.stack(verts), torch.stack(valid)
 
 
-def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0) -> Mesh:
+def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0,
+                   max_triangles: int = 0) -> Mesh:
     """Zero-isosurface triangle soup of a TSDF volume in either layout
-    (host Mesh: (3T, 3) float32 vertices, faces 0..3T-1)."""
+    (host Mesh: (3T, 3) float32 vertices, faces 0..3T-1). A nonzero
+    ``max_triangles`` caps the mesh: a larger one keeps its first
+    ``max_triangles`` triangles and says so on stderr."""
     nx, ny, nz = vol.dims
     slab = min(slab, nx - 1)
     empty = Mesh(vertices=np.zeros((0, 3), np.float32), faces=np.zeros((0, 3), np.int32))
@@ -157,7 +162,15 @@ def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0) -> 
         out.append(verts[valid])  # slot-major, then cell raster order
     if not out:
         return empty
-    tris = torch.cat(out).cpu().numpy()  # (T, 9): only the real triangles
+    tris = torch.cat(out)  # (T, 9): only the real triangles
+    if max_triangles and len(tris) > max_triangles:
+        print(
+            f"marching_cubes: {len(tris)} triangles exceed capacity {max_triangles}; "
+            "mesh truncated (raise max_triangles)",
+            file=sys.stderr,
+        )
+        tris = tris[:max_triangles]
+    tris = tris.cpu().numpy()
     vertices = tris.reshape(-1, 3).astype(np.float32)
     faces = np.arange(len(vertices), dtype=np.int32).reshape(-1, 3)
     return Mesh(vertices=vertices, faces=faces)

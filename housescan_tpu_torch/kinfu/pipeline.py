@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from housescan_tpu_torch.geometry.transform import full_fp32_matmul
+from housescan_tpu_torch.geometry.transform import inverse_rigid  # noqa: F401  (the reference defines it here)
 from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.icp import icp_track
@@ -69,6 +70,7 @@ def kinfu_init(
     origin=None,
     init_pose=None,
     dtype=torch.float32,
+    *,
     device="cuda",
 ) -> KinFuState:
     """Fresh state with every tensor on ``device``; ``dtype`` picks the
@@ -181,6 +183,7 @@ def kinfu_step(
     z_min: float = 0.3,
     max_raycast_steps: int = 256,
     use_pallas: bool = True,
+    *,
     forced_pose=None,
 ) -> KinFuState:
     """Track and fuse one (H, W) depth frame. The volume and planes of

@@ -47,7 +47,7 @@ def downsample_depth(depth: torch.Tensor, sigma_depth: float = 0.03) -> torch.Te
 
 def depth_to_vertices(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
     """(H, W) depth -> (H, W, 3) camera-frame vertex map (0 where invalid)."""
-    return pixel_rays(intr, depth.dtype, depth.device) * depth[..., None]
+    return pixel_rays(intr, depth.dtype, device=depth.device) * depth[..., None]
 
 
 def _vertices_cm(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:

@@ -61,7 +61,7 @@ def raycast(
     """March every pixel ray of camera ``pose`` (4x4 row-vector
     camera-to-world) through the volume to its first zero crossing."""
     dev = vol.data.device
-    rays_cam = pixel_rays(intr, torch.float32, dev)
+    rays_cam = pixel_rays(intr, torch.float32, device=dev)
     rot = pose[:3, :3]
     origin = pose[3, :3]
     dirs = mm(rays_cam, rot)  # world directions, scaled so that z_cam(t) = t

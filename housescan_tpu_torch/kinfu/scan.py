@@ -53,12 +53,13 @@ def scan_to_room_dir(
     max_points_full: int = 1 << 20,
     downsample_to: int = 1 << 16,
     write_mesh: bool = False,
+    use_pallas: Optional[bool] = None,
     progress: bool = False,
     checkpoint_every: int = 0,
     checkpoint_path: Optional[Union[str, Path]] = None,
     resume: bool = False,
     known_poses: Optional[np.ndarray] = None,
-    use_pallas: Optional[bool] = None,
+    *,
     device="cuda",
     timings: Optional[Dict[str, float]] = None,
 ) -> Path:
@@ -186,6 +187,7 @@ def write_room_outputs(
     max_points_full: int = 1 << 20,
     downsample_to: int = 1 << 16,
     write_mesh: bool = False,
+    *,
     timings: Optional[Dict[str, float]] = None,
 ) -> Path:
     """Extract the fused surface and write the reference-layout room

@@ -108,7 +108,7 @@ def _migrated_model_maps(z) -> np.ndarray:
 
 
 def load_scan_state(
-    path: Union[str, Path], intr: Optional[Intrinsics] = None, device="cuda"
+    path: Union[str, Path], intr: Optional[Intrinsics] = None, *, device="cuda"
 ) -> Tuple[KinFuState, int, np.ndarray]:
     """Load a scan checkpoint onto ``device``: (state, next frame index,
     trajectory of the frames before it; empty for v1 files)."""

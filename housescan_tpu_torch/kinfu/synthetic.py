@@ -309,6 +309,7 @@ def render_depth_stream(
     spheres: Optional[np.ndarray] = None,
     cylinders: Optional[np.ndarray] = None,
     obbs: Optional[np.ndarray] = None,
+    *,
     device="cuda",
 ) -> torch.Tensor:
     """(N, H, W) float32 depth stream on ``device``, with optional
@@ -346,6 +347,7 @@ def ground_truth_tsdf(
     origin: np.ndarray,
     half_dims: np.ndarray,
     trunc: float,
+    *,
     device="cuda",
 ) -> torch.Tensor:
     """Exact truncated SDF of the box-room interior on the voxel grid,

@@ -149,6 +149,7 @@ def tsdf_new(
     trunc: float = 0.03,
     origin: Optional[torch.Tensor] = None,
     dtype=torch.float32,
+    *,
     device="cuda",
 ) -> TsdfVolume:
     """Fresh volume (tsdf = +1 far free space, weight 0) on ``device``:
@@ -166,7 +167,7 @@ def tsdf_new(
     )
 
 
-def from_config(cfg, origin=None, device="cuda") -> TsdfVolume:
+def from_config(cfg, origin=None, *, device="cuda") -> TsdfVolume:
     """Volume for a ``config.TsdfConfig``: "packed_i16" is the packed
     layout, "bfloat16" the bfloat16 planes, any other name the float32
     ones (the reference's mapping)."""
@@ -224,6 +225,7 @@ def tsdf_integrate(
     intr: Intrinsics,
     max_weight: float = 128.0,
     depth_interp: str = "bilinear",
+    *,
     x_offset: int = 0,
 ) -> TsdfVolume:
     """Fuse one (H, W) depth frame at the row-vector camera-to-world

@@ -21,6 +21,11 @@ PyTorch version, and a note on the Pallas kernel it replaces:
 ``tsdf_integrate_pallas`` is exported here, as the reference exports it.
 """
 
+# The kinfu package re-exports the step, which imports these modules, and
+# these modules import kinfu's: importing kinfu first lets any module of
+# this package be the first one imported.
+import housescan_tpu_torch.kinfu  # noqa: E402,F401
+
 __all__ = ["tsdf_integrate_pallas"]
 
 

@@ -303,6 +303,7 @@ def raycast_tiles_maps(
     intr: Intrinsics,
     vol: TsdfVolume,
     z_min: float = 0.3,
+    *,
     block_x0: int = 0,
 ) -> torch.Tensor:
     """K6: raw model maps before seam masking, (9, H, W): rows [depth,

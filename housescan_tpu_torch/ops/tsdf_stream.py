@@ -403,6 +403,7 @@ def tsdf_integrate_stream(
     pose: torch.Tensor,
     intr: Intrinsics,
     max_weight: float = 128.0,
+    *,
     free_split: bool = True,
     global_blocks=None,
 ):

@@ -65,15 +65,17 @@ def _devices(need: int, devices, what: str) -> List[torch.device]:
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = VOLUME_AXIS,
-              devices: Optional[Sequence] = None) -> Mesh:
+              *, devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the first ``n_devices`` of ``devices`` (default: the
     visible CUDA devices, all of them when ``n_devices`` is None)."""
     if n_devices is None:
         n_devices = torch.cuda.device_count() if devices is None else len(devices)
+    if n_devices < 1:
+        raise ValueError("a mesh needs at least one device; no CUDA device is visible")
     return Mesh(_devices(n_devices, devices, str(n_devices)), (axis_name,))
 
 
-def make_mesh2d(n_rooms: int, n_slabs: int, devices: Optional[Sequence] = None) -> Mesh:
+def make_mesh2d(n_rooms: int, n_slabs: int, *, devices: Optional[Sequence] = None) -> Mesh:
     """2-D (rooms x slabs) mesh: rooms on the outer axis, each room's
     volume X-slabs on the inner one."""
     need = n_rooms * n_slabs

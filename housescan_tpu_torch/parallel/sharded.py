@@ -127,6 +127,7 @@ def sharded_kinfu_init(
     trunc: float = 0.06,
     init_pose=None,
     use_pallas: bool = False,
+    *,
     dtype=None,
 ) -> ShardedKinFuState:
     """A fresh state, the volume allocated slab by slab on the mesh. The
@@ -235,6 +236,7 @@ def make_sharded_step(
     max_raycast_steps: int = 96,
     halo: int = 2,
     use_pallas: bool = False,
+    *,
     z_min: float = 0.3,
     max_weight: float = 128.0,
 ):
@@ -361,7 +363,7 @@ def _fine_level(mesh: Mesh, live, model, pose, prev_pose, intr: Intrinsics, gate
     return pose, n_corr
 
 
-def single_state_from_sharded(state: ShardedKinFuState, device=None) -> KinFuState:
+def single_state_from_sharded(state: ShardedKinFuState, *, device=None) -> KinFuState:
     """The sharded state gathered into a single-device ``KinFuState`` on
     ``device`` (default the first shard's): the scan-checkpoint schema,
     so a sharded room resumes mid-scan like a single-device one. The
@@ -408,7 +410,7 @@ def sharded_state_from_single(mesh: Mesh, kstate: KinFuState, use_pallas: bool) 
     )
 
 
-def sharded_fusion_step(state, raw_depth, mesh: Mesh, intr: Intrinsics, forced_pose=None,
+def sharded_fusion_step(state, raw_depth, mesh: Mesh, intr: Intrinsics, *, forced_pose=None,
                         **kwargs):
     """One step through a step built for the call (a loop builds it once
     with ``make_sharded_step``)."""

@@ -40,7 +40,7 @@ def auto_align_floor(scene: Scene, room: Room) -> Optional[Room]:
     return room_auto_align_axis(scene, room, np.array([0.0, 1.0, 0.0], np.float32))
 
 
-def rotate_plane(plane, rot: np.ndarray, device="cuda"):
+def rotate_plane(plane, rot: np.ndarray, *, device="cuda"):
     """Rotate a free-standing plane about its boundary mean
     (ref Main.hs:1586-1593 rotatePlaneAround/rotatePlane)."""
     device = on_device(device)

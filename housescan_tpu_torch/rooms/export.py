@@ -81,6 +81,7 @@ def export_room_full_res(
     room: Room,
     out_path: Union[str, Path],
     full_res_path: Optional[Union[str, Path]] = None,
+    *,
     device="cuda",
 ) -> Path:
     """Apply the room's cumulative transform to its full-resolution model

@@ -21,7 +21,7 @@ from housescan_tpu_torch.rooms.ops import translate_room
 from housescan_tpu_torch.rooms.types import ID, Plane, Room, Scene
 
 
-def translate_plane(plane: Plane, offset: np.ndarray, device="cuda") -> Plane:
+def translate_plane(plane: Plane, offset: np.ndarray, *, device="cuda") -> Plane:
     """Translate one plane: equation + boundary (ref Main.hs:1691-1694)."""
     device = on_device(device)
     eq = translate_plane_eq(PlaneEq(f32(plane.normal, device), f32(plane.d, device)),

@@ -55,7 +55,7 @@ def _split(points: np.ndarray, sizes: List[int]) -> List[np.ndarray]:
     return np.split(points, np.cumsum(sizes)[:-1]) if sizes else []
 
 
-def rotate_room_around(room: Room, center: np.ndarray, rot_mat: np.ndarray, device="cuda") -> Room:
+def rotate_room_around(room: Room, center: np.ndarray, rot_mat: np.ndarray, *, device="cuda") -> Room:
     """Rotate every component of a room about ``center``; the cumulative
     proj picks up T(-c) R T(c)."""
     device = on_device(device)
@@ -92,12 +92,12 @@ def rotate_room_around(room: Room, center: np.ndarray, rot_mat: np.ndarray, devi
     )
 
 
-def rotate_room(room: Room, rot_mat: np.ndarray, device="cuda") -> Room:
+def rotate_room(room: Room, rot_mat: np.ndarray, *, device="cuda") -> Room:
     """Rotate about the room's cloud mean."""
     return rotate_room_around(room, room.mean(), rot_mat, device=device)
 
 
-def translate_room(room: Room, offset: np.ndarray, device="cuda") -> Room:
+def translate_room(room: Room, offset: np.ndarray, *, device="cuda") -> Room:
     """Translate every component: the plane equations on ``device``, the
     points on the host (an addition, as the reference does it)."""
     device = on_device(device)
@@ -121,7 +121,7 @@ def translate_room(room: Room, offset: np.ndarray, device="cuda") -> Room:
     )
 
 
-def project_room(room: Room, proj: np.ndarray, device="cuda") -> Room:
+def project_room(room: Room, proj: np.ndarray, *, device="cuda") -> Room:
     """Apply a rigid row-vector 4x4 and compose it into the room's proj:
     rotate about the origin, then translate; the proj is then set to the
     exact one-step composition."""
@@ -132,14 +132,14 @@ def project_room(room: Room, proj: np.ndarray, device="cuda") -> Room:
     return replace(moved, proj=compose_proj4(f32(room.proj, device), f32(proj, device)).cpu().numpy())
 
 
-def rotate_kinfu_room(room: Room, device="cuda") -> Room:
+def rotate_kinfu_room(room: Room, *, device="cuda") -> Room:
     """KinFu-recorded clouds are heads-up: turn 180 degrees about X."""
     device = on_device(device)
     rot = axis_angle_mat(torch.tensor([1.0, 0.0, 0.0], device=device), math.pi)
     return rotate_room(room, rot.cpu().numpy(), device=device)
 
 
-def remove_ceiling(room: Room, fraction: float = 0.2, device="cuda") -> Room:
+def remove_ceiling(room: Room, fraction: float = 0.2, *, device="cuda") -> Room:
     """Drop the top ``fraction`` of points by Y (to look inside); per-point
     colours stay aligned."""
     pts = room.cloud.points

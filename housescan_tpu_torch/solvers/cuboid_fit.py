@@ -138,7 +138,7 @@ def _two_stage(points: torch.Tensor, tol: float, max_iter: int) -> CuboidFit:
 
 
 def fit_cuboid_from_center(
-    points, tol: float = 1e-8, max_iter: int = 2000, n_starts: int = 8, device="cuda"
+    points, tol: float = 1e-8, max_iter: int = 2000, n_starts: int = 8, *, device="cuda"
 ) -> CuboidFit:
     """Stage 1 alone: center fixed at the point mean, 7 free params,
     multi-start over quaternion seeds."""
@@ -147,7 +147,7 @@ def fit_cuboid_from_center(
 
 
 def fit_cuboid_from_center_first(
-    points, tol: float = 1e-8, max_iter: int = 2000, polish_bfgs: bool = False, device="cuda"
+    points, tol: float = 1e-8, max_iter: int = 2000, polish_bfgs: bool = False, *, device="cuda"
 ) -> CuboidFit:
     """The two-stage production fit: pinned center first, then all 10
     free. ``polish_bfgs=True`` adds ``refine_bfgs``, kept only where it
@@ -160,7 +160,7 @@ def fit_cuboid_from_center_first(
     return fit
 
 
-def fit_cuboid(points, tol: float = 1e-8, max_iter: int = 2000, device="cuda") -> CuboidFit:
+def fit_cuboid(points, tol: float = 1e-8, max_iter: int = 2000, *, device="cuda") -> CuboidFit:
     """Fixed-correspondence fit: the points must be in corner order."""
     pts = f32(points, device)
     dims = guess_dims(pts)
@@ -173,7 +173,7 @@ def fit_cuboid(points, tol: float = 1e-8, max_iter: int = 2000, device="cuda") -
 
 
 def fit_cuboid_batch(points_batch, tol: float = 1e-8, max_iter: int = 2000,
-                     device="cuda") -> CuboidFit:
+                     *, device="cuda") -> CuboidFit:
     """Fit cuboids to a (B, 8, 3) batch of corner sets in one device
     loop (B x 8 instances in stage 1, B in stage 2)."""
     return _two_stage(f32(points_batch, device), tol, max_iter)
@@ -213,7 +213,7 @@ def _strong_wolfe(phi, f0: float, g0: float, alpha1: float = 1.0, c1: float = 1e
     return None
 
 
-def refine_bfgs(points, params, device="cuda", max_iter: int = 200,
+def refine_bfgs(points, params, *, device="cuda", max_iter: int = 200,
                 gtol: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Polish a simplex solution with BFGS on a smoothed nearest-corner
     objective (a softmin for the hard min, so the objective is C^1).

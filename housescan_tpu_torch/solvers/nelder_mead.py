@@ -54,6 +54,7 @@ def nelder_mead_batch(
     step_sizes: torch.Tensor,
     tol: float = 1e-8,
     max_iter: int = 2000,
+    *,
     check_every: int = 32,
 ) -> NelderMeadResult:
     """Minimize B problems from the (B, n) starts ``x0`` with axis-aligned
@@ -131,6 +132,7 @@ def nelder_mead(
     step_sizes: torch.Tensor,
     tol: float = 1e-8,
     max_iter: int = 2000,
+    *,
     device="cuda",
 ) -> NelderMeadResult:
     """Minimize the scalar function ``fun`` of an (n,) vector from ``x0``

@@ -209,3 +209,132 @@ class TestXf:
         j_save(tmp_path / "j.xf", m)
         assert (tmp_path / "p.xf").read_bytes() == (tmp_path / "j.xf").read_bytes()
         np.testing.assert_array_equal(load_xf(tmp_path / "j.xf"), j_load(tmp_path / "p.xf"))
+
+
+class TestBinaryCompressed:
+    """Twins of tests/test_io.py's binary_compressed tests, then the file
+    against the reference's: byte-identical when both packages take the
+    same codec route (native against native, Python against Python)."""
+
+    def test_binary_compressed_round_trip(self, tmp_path):
+        rng = np.random.default_rng(0)
+        pc = pcd.PointCloud(
+            points=rng.normal(size=(500, 3)).astype(np.float32),
+            colors=rng.uniform(size=(500, 3)).astype(np.float32),
+            normals=rng.normal(size=(500, 3)).astype(np.float32),
+        )
+        pcd.save_pcd(tmp_path / "z.pcd", pc, compressed=True)
+        raw = (tmp_path / "z.pcd").read_bytes()
+        assert b"DATA binary_compressed" in raw
+        hdr_end = raw.index(b"binary_compressed\n") + len(b"binary_compressed\n")
+        comp, uncomp = np.frombuffer(raw[hdr_end : hdr_end + 8], "<u4", 2)
+        assert uncomp == 500 * 7 * 4 and 0 < comp
+        loaded = pcd.load_pcd(tmp_path / "z.pcd")
+        np.testing.assert_array_equal(loaded.points, pc.points)
+        np.testing.assert_allclose(loaded.colors, pc.colors, atol=1.0 / 255)
+        np.testing.assert_array_equal(loaded.normals, pc.normals)
+
+    def test_binary_compressed_fixture_parses(self, tmp_path):
+        # A hand-built LZF stream: one literal run of 24 bytes (ctrl 23).
+        soa = np.array([1.0, 4.0, 2.0, 5.0, 3.0, 6.0], "<f4").tobytes()
+        stream = bytes([23]) + soa
+        header = (
+            "VERSION .7\nFIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+            "WIDTH 2\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS 2\n"
+            "DATA binary_compressed\n"
+        ).encode()
+        sizes = np.array([len(stream), len(soa)], "<u4").tobytes()
+        (tmp_path / "z.pcd").write_bytes(header + sizes + stream)
+        loaded = pcd.load_pcd(tmp_path / "z.pcd")
+        np.testing.assert_allclose(loaded.points, [[1, 2, 3], [4, 5, 6]])
+
+    def test_binary_compressed_corrupt_raises(self, tmp_path):
+        header = (
+            "VERSION .7\nFIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+            "WIDTH 2\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS 2\n"
+            "DATA binary_compressed\n"
+        ).encode()
+        stream = bytes([0b00100000, 0xFF, 0x00])  # a back-reference before the start
+        sizes = np.array([len(stream), 24], "<u4").tobytes()
+        (tmp_path / "z.pcd").write_bytes(header + sizes + stream)
+        with pytest.raises(pcd.PcdFormatError, match="binary_compressed|LZF"):
+            pcd.load_pcd(tmp_path / "z.pcd")
+
+    @pytest.mark.parametrize("route", ["native", "python"])
+    def test_compressed_bytes_match_reference(self, tmp_path, monkeypatch, route):
+        from housescan_tpu.io import native as j_native
+        from housescan_tpu_torch.io import native
+
+        if route == "python":
+            monkeypatch.setattr(native, "_load", lambda: None)
+            monkeypatch.setattr(j_native, "_load", lambda: None)
+        else:
+            assert native.available() and j_native.available()
+        rng = np.random.default_rng(3)
+        pts = rng.normal(size=(300, 3)).astype(np.float32)
+        pts[100:200] = pts[:100]  # repeats for the LZF back-references
+        cloud = pcd.PointCloud(points=pts, colors=rng.uniform(size=(300, 3)).astype(np.float32))
+        pcd.save_pcd(tmp_path / "port.pcd", cloud, compressed=True)
+        j_pcd.save_pcd(tmp_path / "ref.pcd", j_pcd.PointCloud(cloud.points, cloud.colors),
+                       compressed=True)
+        assert (tmp_path / "port.pcd").read_bytes() == (tmp_path / "ref.pcd").read_bytes()
+        back = pcd.load_pcd(tmp_path / "ref.pcd")
+        np.testing.assert_array_equal(back.points, pts)
+
+
+class TestNative:
+    """The port's native helpers against the reference's, on both routes
+    (exact: the same library source and the same numpy fallbacks)."""
+
+    @pytest.fixture(params=["native", "python"])
+    def natives(self, request, monkeypatch):
+        from housescan_tpu.io import native as j_native
+        from housescan_tpu_torch.io import native
+
+        if request.param == "python":
+            monkeypatch.setattr(native, "_load", lambda: None)
+            monkeypatch.setattr(j_native, "_load", lambda: None)
+        else:
+            assert native.available() and j_native.available()
+        return native, j_native
+
+    def test_decode_u16_depth(self, natives):
+        native, j_native = natives
+        raw = np.random.default_rng(0).integers(0, 65535, size=(3, 48, 64)).astype(np.uint16)
+        got = native.decode_u16_depth(raw, 0.001)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, j_native.decode_u16_depth(raw, 0.001))
+
+    def test_parse_ascii_floats(self, natives):
+        native, j_native = natives
+        text = b"1.5 -2 3e-3\n4 5.25 6\n"
+        np.testing.assert_array_equal(native.parse_ascii_floats(text, 6),
+                                      j_native.parse_ascii_floats(text, 6))
+        with pytest.raises(ValueError, match="expected 7 floats"):
+            native.parse_ascii_floats(text, 7)
+
+    def test_transform_points(self, natives):
+        native, j_native = natives
+        rng = np.random.default_rng(1)
+        pts = rng.normal(size=(257, 3)).astype(np.float32)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        m[3, :3] = rng.normal(size=3)
+        np.testing.assert_array_equal(native.transform_points(pts, m),
+                                      j_native.transform_points(pts, m))
+
+    def test_lzf_round_trip(self, natives):
+        native, j_native = natives
+        data = bytes(np.random.default_rng(2).integers(0, 4, size=5000).astype(np.uint8))
+        blob = native.lzf_compress(data)
+        assert blob == j_native.lzf_compress(data) and len(blob) < len(data)
+        assert native.lzf_decompress(blob, len(data)) == data
+        with pytest.raises(ValueError):
+            native.lzf_decompress(blob, len(data) + 1)
+
+    def test_library_builds_outside_native_dir(self):
+        from housescan_tpu_torch.io import native
+
+        assert native.available()
+        path = native._build()
+        assert path.parent == native.BUILD_DIR and path.parent.name == "housescan_native"
