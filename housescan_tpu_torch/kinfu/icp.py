@@ -21,6 +21,7 @@ Two paths, as in the reference (``housescan_tpu/kinfu/icp.py``):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -28,14 +29,23 @@ import torch
 from housescan_tpu_torch.geometry.transform import mm
 from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
-from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level
+from housescan_tpu_torch.ops.icp_cuda import BAND_H, _icp_level
 from housescan_tpu_torch.ops.solve6 import solve_twist_compose
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 # Per level, finest first: association window (0 = +-1.5 px) and Tikhonov
 # damping (coarse levels see few pixels of one or two walls).
 WINDOWS = (0, 2, 4)
 DAMPINGS = (3e-4, 3e-3, 1e-2)
 HUBER = 0.02
+
+
+@functools.lru_cache(maxsize=None)
+def _level_names(level: int):
+    """A level's span, and its counters' names (iterations run,
+    correspondences, visible model pixels)."""
+    return (f"track.icp.level{level}",
+            tuple(f"icp.level{level}.{c}" for c in ("iterations", "corr", "visible")))
 
 
 class IcpResult(NamedTuple):
@@ -230,31 +240,34 @@ def icp_track(
             dist = per_level(dist_threshold, level)
         else:
             dist = dist_threshold
-        if use_pallas:
-            packed = mp.pack_icp_inputs(
-                live_maps[level],
-                model_maps[level],
-                mp.model_gradients(model_maps[level]),
-                band_h=BAND_H,
-            )
-            pose, lvl_rmse, lvl_corr = icp_level(
-                packed,
-                pose,
-                prev_pose,
-                intr.level(level),
-                n_iters=iters,
-                window=per_level(windows, level),
-                dist_threshold=dist,
-                angle_threshold=angle_threshold,
-                damping=per_level(dampings, level),
-                tight_threshold=tight_threshold,
-            )
-        else:
-            pose, lvl_rmse, lvl_corr = _xla_level(
-                live_maps[level], model_maps[level], pose, prev_pose, intr.level(level), iters,
-                per_level(windows, level), per_level(dampings, level), dist, angle_threshold,
-                tight_threshold,
-            )
+        span, counters = _level_names(level)
+        with GLOBAL_METRICS.span(span):
+            if use_pallas:
+                packed = mp.pack_icp_inputs(
+                    live_maps[level],
+                    model_maps[level],
+                    mp.model_gradients(model_maps[level]),
+                    band_h=BAND_H,
+                )
+                pose, lvl_rmse, lvl_corr = _icp_level(
+                    packed,
+                    pose,
+                    prev_pose,
+                    intr.level(level),
+                    n_iters=iters,
+                    window=per_level(windows, level),
+                    dist_threshold=dist,
+                    angle_threshold=angle_threshold,
+                    damping=per_level(dampings, level),
+                    tight_threshold=tight_threshold,
+                    counters=counters,
+                )
+            else:
+                pose, lvl_rmse, lvl_corr = _xla_level(
+                    live_maps[level], model_maps[level], pose, prev_pose, intr.level(level), iters,
+                    per_level(windows, level), per_level(dampings, level), dist, angle_threshold,
+                    tight_threshold,
+                )
         # report the finest level that had correspondences
         use = lvl_corr > 0
         rmse = torch.where(use, lvl_rmse, rmse)

@@ -3,7 +3,10 @@
 One ``kinfu_step``: bilateral filter (K1) -> pyramid -> model-map pyramid
 -> per-level ICP -> tracking-loss gate -> integrate -> raycast, which
 gives the next frame's model maps. The step runs entirely on the state's
-device and never waits on it from the host. Two paths, as in the
+device and never waits on it from the host. With
+``utils.metrics.GLOBAL_METRICS`` enabled, the step records its spans
+(``step``; ``track``, ``integrate``, ``raycast`` and their parts) and
+counters, still without waiting on the card. Two paths, as in the
 reference:
 
   * the kernel path (``use_pallas=True``, the port's default): ICP by K3,
@@ -44,6 +47,7 @@ from housescan_tpu_torch.kinfu.raycast import raycast
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, tsdf_integrate, tsdf_new
 from housescan_tpu_torch.ops.raycast_planes import raycast_planes
 from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 
 class KinFuState(NamedTuple):
@@ -76,27 +80,30 @@ def kinfu_init(
     """Fresh state with every tensor on ``device``; ``dtype`` picks the
     volume layout: ``torch.float32`` (2, X, Y, Z), the reference's
     default, the same in ``torch.bfloat16``, or ``torch.int32`` packed."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        full_fp32_matmul()
-    vol = tsdf_new(resolution, size_m, trunc, origin, dtype, device=device)
-    planes_dims = planes_shape(resolution) if pallas_supported(resolution) else (1, 1, 1, 16, 16)
-    pose = (
-        torch.eye(4, dtype=torch.float32, device=device)
-        if init_pose is None
-        else torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(device).clone()
-    )
-    return KinFuState(
-        volume=vol,
-        planes=torch.zeros(planes_dims, dtype=torch.float32, device=device),
-        pose=pose,
-        model_maps=torch.zeros((mp.MODEL_ROWS, intr.height, intr.width), dtype=torch.float32, device=device),
-        model_pose=pose.clone(),
-        frame_index=torch.zeros((), dtype=torch.int32, device=device),
-        last_rmse=torch.zeros((), dtype=torch.float32, device=device),
-        last_corr=torch.zeros((), dtype=torch.int32, device=device),
-        last_tracked=torch.ones((), dtype=torch.bool, device=device),
-    )
+    with GLOBAL_METRICS.span("init"):
+        device = torch.device(device)
+        if device.type == "cuda":
+            full_fp32_matmul()
+        vol = tsdf_new(resolution, size_m, trunc, origin, dtype, device=device)
+        planes_dims = (planes_shape(resolution) if pallas_supported(resolution)
+                       else (1, 1, 1, 16, 16))
+        pose = (
+            torch.eye(4, dtype=torch.float32, device=device)
+            if init_pose is None
+            else torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(device).clone()
+        )
+        return KinFuState(
+            volume=vol,
+            planes=torch.zeros(planes_dims, dtype=torch.float32, device=device),
+            pose=pose,
+            model_maps=torch.zeros((mp.MODEL_ROWS, intr.height, intr.width),
+                                   dtype=torch.float32, device=device),
+            model_pose=pose.clone(),
+            frame_index=torch.zeros((), dtype=torch.int32, device=device),
+            last_rmse=torch.zeros((), dtype=torch.float32, device=device),
+            last_corr=torch.zeros((), dtype=torch.int32, device=device),
+            last_tracked=torch.ones((), dtype=torch.bool, device=device),
+        )
 
 
 def pallas_supported(volume_resolution: int) -> bool:
@@ -133,19 +140,29 @@ def track_frame(raw_depth, intr: Intrinsics, state, start, voxel_size, icp, leve
     gate) -> (pose, rmse, n_corr)`` is the path's tracker, started from
     the pose ``start`` the model maps were rendered at. A ``forced_pose`` is taken as it is: no tracking, always
     fused. The first frame keeps the state's pose."""
-    dev = raw_depth.device
-    if forced_pose is not None:
-        return Track(torch.as_tensor(forced_pose, dtype=torch.float32).to(dev),
-                     torch.ones((), dtype=torch.bool, device=dev),
-                     torch.zeros((), dtype=torch.float32, device=dev),
-                     torch.zeros((), dtype=torch.int32, device=dev))
-    pyr = build_pyramid(raw_depth, intr, levels=levels)
-    model_pyr = mp.build_map_pyramid(state.model_maps, levels)
-    is_first = state.frame_index == 0
-    # Adaptive tight gate: half a voxel, floored at 6 mm; the finest
-    # level's loose gate equals it, the coarser ones are 5 and 10 cm.
-    tight = torch.clamp(0.5 * voxel_size, min=0.006)
-    icp_pose, icp_rmse, icp_corr = icp(list(pyr.maps), model_pyr, start, tight)
+    with GLOBAL_METRICS.span("track"):
+        dev = raw_depth.device
+        if forced_pose is not None:
+            return Track(torch.as_tensor(forced_pose, dtype=torch.float32).to(dev),
+                         torch.ones((), dtype=torch.bool, device=dev),
+                         torch.zeros((), dtype=torch.float32, device=dev),
+                         torch.zeros((), dtype=torch.int32, device=dev))
+        with GLOBAL_METRICS.span("track.pyramid"):
+            pyr = build_pyramid(raw_depth, intr, levels=levels)
+        with GLOBAL_METRICS.span("track.model_pyramid"):
+            model_pyr = mp.build_map_pyramid(state.model_maps, levels)
+        is_first = state.frame_index == 0
+        # Adaptive tight gate: half a voxel, floored at 6 mm; the finest
+        # level's loose gate equals it, the coarser ones are 5 and 10 cm.
+        tight = torch.clamp(0.5 * voxel_size, min=0.006)
+        with GLOBAL_METRICS.span("track.icp"):
+            icp_pose, icp_rmse, icp_corr = icp(list(pyr.maps), model_pyr, start, tight)
+        with GLOBAL_METRICS.span("track.gate"):
+            return _gate(raw_depth, intr, state, is_first, icp_pose, icp_rmse, icp_corr)
+
+
+def _gate(raw_depth, intr: Intrinsics, state, is_first, icp_pose, icp_rmse, icp_corr) -> Track:
+    """The tracking-loss gate of ``track_frame``."""
     new_pose = torch.where(is_first, state.pose, icp_pose)
 
     # Tracking-loss gate: drop the frame when the correspondence set
@@ -210,32 +227,35 @@ def kinfu_step(
                         use_pallas=use_pallas)
         return out.pose, out.rmse, out.n_corr
 
-    tr = track_frame(raw_depth, intr, state, state.model_pose, vol.voxel_size, icp, levels,
-                     forced_pose)
-    new_pose, tracked = tr.pose, tr.tracked
-    depth_eff = torch.where(tracked, raw_depth, 0.0)
+    with GLOBAL_METRICS.span("step"):
+        tr = track_frame(raw_depth, intr, state, state.model_pose, vol.voxel_size, icp, levels,
+                         forced_pose)
+        new_pose, tracked = tr.pose, tr.tracked
+        depth_eff = torch.where(tracked, raw_depth, 0.0)
 
-    volume, planes = _integrate_dispatch(
-        vol, state.planes, depth_eff, new_pose, intr, max_weight, use_pallas
-    )
-    if use_pallas:
-        model_maps = raycast_planes(planes, new_pose, intr, volume, z_min=z_min)
-    else:
-        rc = raycast(volume, new_pose, intr, z_min=z_min, max_steps=max_raycast_steps)
-        model_maps = mp.model_from_hwc(rc.vertices, rc.normals, rc.valid, rc.depth)
-    model_maps = torch.where(tracked, model_maps, state.model_maps)
+        with GLOBAL_METRICS.span("integrate"):
+            volume, planes = _integrate_dispatch(
+                vol, state.planes, depth_eff, new_pose, intr, max_weight, use_pallas
+            )
+        with GLOBAL_METRICS.span("raycast"):
+            if use_pallas:
+                model_maps = raycast_planes(planes, new_pose, intr, volume, z_min=z_min)
+            else:
+                rc = raycast(volume, new_pose, intr, z_min=z_min, max_steps=max_raycast_steps)
+                model_maps = mp.model_from_hwc(rc.vertices, rc.normals, rc.valid, rc.depth)
+        model_maps = torch.where(tracked, model_maps, state.model_maps)
 
-    return KinFuState(
-        volume=volume,
-        planes=planes,
-        pose=new_pose,
-        model_maps=model_maps,
-        model_pose=torch.where(tracked, new_pose, state.model_pose),
-        frame_index=state.frame_index + 1,
-        last_rmse=tr.rmse,
-        last_corr=tr.corr,
-        last_tracked=tracked,
-    )
+        return KinFuState(
+            volume=volume,
+            planes=planes,
+            pose=new_pose,
+            model_maps=model_maps,
+            model_pose=torch.where(tracked, new_pose, state.model_pose),
+            frame_index=state.frame_index + 1,
+            last_rmse=tr.rmse,
+            last_corr=tr.corr,
+            last_tracked=tracked,
+        )
 
 
 def kinfu_run(

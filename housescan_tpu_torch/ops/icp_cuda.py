@@ -43,6 +43,7 @@ import torch
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.solve6 import solve_twist_math
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 N_ROWS = 19
 BAND_H = 32
@@ -227,6 +228,14 @@ def icp_level_plain(packed, pose, prev_pose, intr, n_iters, window=0,
     """K3's plain version: the reference kernel's iteration loop, with
     every state update selected by ``torch.where`` on the converged flag
     (no host synchronisation)."""
+    return _icp_level_plain(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
+                            angle_threshold, damping, tight_threshold)[:3]
+
+
+def _icp_level_plain(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
+                     angle_threshold, damping, tight_threshold):
+    """``icp_level_plain``'s (pose, rmse, n_corr), then the iterations run
+    and the visible model pixels, as K3's state rows 18 and 20 hold them."""
     p = _params(prev_pose, intr, window, dist_threshold, angle_threshold,
                 damping, tight_threshold)
     _, hp, wp = packed.shape
@@ -242,6 +251,7 @@ def icp_level_plain(packed, pose, prev_pose, intr, n_iters, window=0,
     widen_until = torch.zeros((), dtype=torch.int32, device=dev)
     rmse = torch.zeros((), dtype=torch.float32, device=dev)
     n_corr = torch.zeros((), dtype=torch.float32, device=dev)
+    iters_run = torch.zeros((), dtype=torch.int32, device=dev)
     for it in range(n_iters):
         dist2 = torch.where(it < widen_until, p[17], p[24])
         acc = _level_sums(m, pose16, p, dist2, py, px, in_img)
@@ -265,12 +275,14 @@ def icp_level_plain(packed, pose, prev_pose, intr, n_iters, window=0,
         )
         conv_it = (norm <= 1e-5) & healthy & was_tight
         live = ~converged
+        iters_run = iters_run + live.to(torch.int32)
         pose16 = [torch.where(live, res[i], pose16[i]) for i in range(16)]
         rmse = torch.where(live, rmse_it, rmse)
         n_corr = torch.where(live, corr_it, n_corr)
         widen_until = torch.where(live, widen_it, widen_until)
         converged = torch.where(live, conv_it, converged)
-    return torch.stack(pose16).reshape(4, 4), rmse, n_corr.to(torch.int32)
+    return (torch.stack(pose16).reshape(4, 4), rmse, n_corr.to(torch.int32), iters_run,
+            mok_total)
 
 
 def icp_level(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
@@ -284,6 +296,17 @@ def icp_level(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
     widening to ``dist_threshold`` when the correspondence count falls
     below CORR_FRAC of the visible model pixels, for half the
     remaining iterations. ``None`` = one fixed gate."""
+    return _icp_level(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
+                      angle_threshold, damping, tight_threshold)
+
+
+def _icp_level(packed, pose, prev_pose, intr: Intrinsics, n_iters: int, window: int = 0,
+               dist_threshold=0.10, angle_threshold: float = 0.5236, damping: float = 3e-4,
+               tight_threshold=None, counters=None):
+    """``icp_level``; with tracing on (``utils.metrics``), ``counters``,
+    the names of the level's (iterations run, correspondences, visible
+    model pixels), counts them: on the card K3's state rows 18, 22 and
+    20, read only when the counters are drained."""
     _, hp, wp = packed.shape
     if hp % BAND_H or wp % 128 or packed.shape[0] != N_ROWS:
         raise ValueError(f"icp_level: packed must be (19, 32k, 128k), got {tuple(packed.shape)}")
@@ -291,12 +314,20 @@ def icp_level(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,
         raise ValueError(f"icp_level: prev_pose must be (4, 4), got {tuple(prev_pose.shape)}")
     if packed.device.type == "cpu":
         cuda_lib.plain_counts["icp_level"] += 1
-        return icp_level_plain(packed, pose, prev_pose, intr, n_iters, window,
-                               dist_threshold, angle_threshold, damping,
-                               tight_threshold)
-    state = icp_level_state(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
-                            angle_threshold, damping, tight_threshold)
-    return state[:16].view(4, 4), state[16], state[22].view(torch.int32)
+        pose, rmse, n_corr, iters_run, visible = _icp_level_plain(
+            packed, pose, prev_pose, intr, n_iters, window, dist_threshold, angle_threshold,
+            damping, tight_threshold)
+    else:
+        state = icp_level_state(packed, pose, prev_pose, intr, n_iters, window, dist_threshold,
+                                angle_threshold, damping, tight_threshold)
+        pose, rmse, n_corr = state[:16].view(4, 4), state[16], state[22].view(torch.int32)
+        iters_run = visible = None
+    if counters is not None and GLOBAL_METRICS.tracing:
+        if iters_run is None:
+            iters_run, visible = state[18], state[20]
+        for name, val in zip(counters, (iters_run, n_corr, visible)):
+            GLOBAL_METRICS.count(name, val)
+    return pose, rmse, n_corr
 
 
 def icp_level_state(packed, pose, prev_pose, intr: Intrinsics, n_iters: int,

@@ -18,6 +18,7 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
 from housescan_tpu_torch.ops.raycast_tiles import raycast_tiles_maps
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 EDGE_PX = 4
 RAW_BID = 7
@@ -34,7 +35,8 @@ def raycast_planes(
     """Channel-major (8, H, W) model maps: depth, world vertex xyz, world
     normal xyz, valid."""
     raw = raycast_tiles_maps(planes, pose, intr, vol, z_min=z_min)
-    return finalize_plane_maps(raw, voxel_size=vol.voxel_size)
+    with GLOBAL_METRICS.span("raycast.finalize"):
+        return finalize_plane_maps(raw, voxel_size=vol.voxel_size)
 
 
 def finalize_plane_maps(raw: torch.Tensor, voxel_size=None) -> torch.Tensor:

@@ -38,6 +38,7 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.planes import SUB_Z
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 # The reference reads these from HOUSESCAN_RC_* environment variables;
 # the port keeps their default values as constants.
@@ -314,14 +315,16 @@ def raycast_tiles_maps(
         raise ValueError("raycast_tiles_maps: image height must be a multiple of 8")
     n_ut = -(-intr.width // 128)
     w_pad = n_ut * 128
-    cand = build_tile_candidates(planes, pose, intr, vol, z_min=z_min, block_x0=block_x0)
-    params = _ray_params(pose, intr, z_min, n_ut)
-    if cand.device.type == "cpu":
-        cuda_lib.plain_counts["raycast_tiles"] += 1
-        raw = raycast_tiles_plain(cand, params, intr.height, w_pad)
-    else:
-        raw = launch_raycast_kernel(cand, params, intr.height, w_pad)
-    return raw[:, :, : intr.width]
+    with GLOBAL_METRICS.span("raycast.candidates"):
+        cand = build_tile_candidates(planes, pose, intr, vol, z_min=z_min, block_x0=block_x0)
+    with GLOBAL_METRICS.span("raycast.tiles"):
+        params = _ray_params(pose, intr, z_min, n_ut)
+        if cand.device.type == "cpu":
+            cuda_lib.plain_counts["raycast_tiles"] += 1
+            raw = raycast_tiles_plain(cand, params, intr.height, w_pad)
+        else:
+            raw = launch_raycast_kernel(cand, params, intr.height, w_pad)
+        return raw[:, :, : intr.width]
 
 
 def launch_raycast_kernel(cand, params, height, w_pad):

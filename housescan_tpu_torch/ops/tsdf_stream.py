@@ -90,6 +90,7 @@ from housescan_tpu_torch.ops.chunk_select import (
     build_worklist,
 )
 from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, chunk_plane_fields
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 CHUNK_Z = 128
 BIG = 1.0e9
@@ -426,26 +427,35 @@ def tsdf_integrate_stream(
     if tuple(planes.shape) != planes_shape(dims):
         raise ValueError(f"planes shape {tuple(planes.shape)} != {planes_shape(dims)}")
     depth = depth.to(torch.float32)
-    sat_q = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
-    geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
-    if free_split:
-        neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
-        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0, neg_flags=neg_c,
-                                 free_split=True)
-    else:
-        wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0), None
-    mips = build_depth_mips(depth)
-    params = _stream_params(vol, pose, intr, max_weight, id_nbx, nzc, bx0)
-    if vol.data.device.type == "cpu":
-        if fwl is not None:
-            cuda_lib.plain_counts["tsdf_free"] += 1
-            free_carve_plain(vol.data, planes, fwl, params, bx0)
-        cuda_lib.plain_counts["tsdf_stream"] += 1
-        integrate_plain(vol.data, planes, wl.desc, wl.count, mips, params, id_nbx, nzc, bx0)
-        return vol, planes
+    with GLOBAL_METRICS.span("integrate.prepass"):
+        sat_q = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+        geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
+        if free_split:
+            neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+            wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0, neg_flags=neg_c,
+                                     free_split=True)
+        else:
+            wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0), None
+    GLOBAL_METRICS.count("integrate.listed_chunks", wl.count)
     if fwl is not None:
-        launch_free_kernel(vol.data, planes, fwl, params)
-    launch_stream_kernel(vol.data, planes, wl.desc, wl.count, mips, params)
+        GLOBAL_METRICS.count("integrate.free_superblocks", fwl.count)
+    with GLOBAL_METRICS.span("integrate.mips"):
+        mips = build_depth_mips(depth)
+        params = _stream_params(vol, pose, intr, max_weight, id_nbx, nzc, bx0)
+    cpu = vol.data.device.type == "cpu"
+    if fwl is not None:
+        with GLOBAL_METRICS.span("integrate.free"):
+            if cpu:
+                cuda_lib.plain_counts["tsdf_free"] += 1
+                free_carve_plain(vol.data, planes, fwl, params, bx0)
+            else:
+                launch_free_kernel(vol.data, planes, fwl, params)
+    with GLOBAL_METRICS.span("integrate.stream"):
+        if cpu:
+            cuda_lib.plain_counts["tsdf_stream"] += 1
+            integrate_plain(vol.data, planes, wl.desc, wl.count, mips, params, id_nbx, nzc, bx0)
+        else:
+            launch_stream_kernel(vol.data, planes, wl.desc, wl.count, mips, params)
     return vol, planes
 
 

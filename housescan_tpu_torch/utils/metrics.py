@@ -5,6 +5,14 @@ Named metrics with JSONL emission and counters, gauges and timers
 (``Metrics``, ``GLOBAL_METRICS``); the TSDF occupancy of a port volume;
 ``device_trace`` on ``torch.profiler`` in place of the reference's
 ``jax.profiler``.
+
+Beyond the reference: the fusion step's own tracing. ``Metrics.span``
+records named, nested host intervals on ``time.time_ns`` (the clock of
+``torch.profiler``'s device timestamps), and ``Metrics.count`` keeps
+device-side counters (a tensor the step already made) unread until
+``drain``, so tracing adds no host synchronisation. Both are off until
+``enable``: then ``span`` returns one shared no-op context and ``count``
+returns at once.
 """
 
 from __future__ import annotations
@@ -15,15 +23,130 @@ from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: ``parent`` is the index in the same drained list
+    of the span that was open around it (-1: none), ``frame`` the
+    identifier shared by every span under one outermost span (one
+    ``kinfu_step`` call)."""
+
+    name: str
+    parent: int
+    frame: int
+    start_ns: int
+    end_ns: int
+
+
+class CounterRecord(NamedTuple):
+    """One counter reading: ``frame`` is the frame of the span open when
+    it was counted (the last one's where none was)."""
+
+    name: str
+    frame: int
+    value: Union[int, float]
+
+
+class _NoSpan:
+    """The span of disabled tracing: one shared object that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("metrics", "name", "index")
+
+    def __init__(self, metrics: "Metrics", name: str):
+        self.metrics = metrics
+        self.name = name
+
+    def __enter__(self):
+        m = self.metrics
+        if m._open:
+            parent = m._open[-1]
+        else:
+            parent = -1
+            m._frame += 1
+        self.index = len(m._spans)
+        m._spans.append([self.name, parent, m._frame, time.time_ns(), 0])
+        m._open.append(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        m = self.metrics
+        m._spans[self.index][4] = time.time_ns()
+        m._open.pop()
+        return False
 
 
 @dataclass
 class Metrics:
     values: Dict[str, List[float]] = field(default_factory=lambda: defaultdict(list))
     sink_path: Optional[Path] = None
+    tracing: bool = field(default=False, init=False)
+    _spans: list = field(default_factory=list, init=False, repr=False)
+    _open: list = field(default_factory=list, init=False, repr=False)
+    _counters: list = field(default_factory=list, init=False, repr=False)
+    _frame: int = field(default=0, init=False, repr=False)
+
+    def enable(self) -> None:
+        """Start recording spans and counters."""
+        self.tracing = True
+
+    def disable(self) -> None:
+        """Stop recording; what was recorded waits for ``drain``."""
+        self.tracing = False
+
+    def span(self, name: str):
+        """A context manager recording the host interval ``name`` as a
+        child of the span open around it (one shared no-op while tracing
+        is off)."""
+        if not self.tracing:
+            return NO_SPAN
+        return _Span(self, name)
+
+    def count(self, name: str, value) -> None:
+        """Record ``value``, a number or a tensor the caller made, under
+        the current frame; a tensor is kept as it is and read by
+        ``drain``."""
+        if not self.tracing:
+            return
+        self._counters.append((name, self._frame, value))
+
+    def drain(self) -> Dict[str, list]:
+        """The spans (``SpanRecord``, by start) and counters
+        (``CounterRecord``) recorded since the last drain, as plain
+        Python data, then forget them. The counters' tensors are read
+        here, with one synchronisation a device."""
+        if self._open:
+            raise RuntimeError(f"drain() inside open spans {[self._spans[i][0] for i in self._open]}")
+        values = [v for _, _, v in self._counters]
+        by_device: Dict[torch.device, List[int]] = defaultdict(list)
+        for i, v in enumerate(values):
+            if isinstance(v, torch.Tensor):
+                by_device[v.device].append(i)
+        for idx in by_device.values():
+            got = torch.stack([values[i].reshape(()).to(torch.float64) for i in idx]).tolist()
+            for i, g in zip(idx, got):
+                values[i] = g if values[i].is_floating_point() else int(g)
+        out = {
+            "spans": [SpanRecord(*sp) for sp in self._spans],
+            "counters": [CounterRecord(n, f, v) for (n, f, _), v in zip(self._counters, values)],
+        }
+        self._spans, self._counters = [], []
+        return out
 
     def observe(self, name: str, value: float, **tags) -> None:
         self.values[name].append(float(value))

@@ -41,6 +41,7 @@ from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_run, kinfu_step
 from housescan_tpu_torch.kinfu.preprocess import bilateral_filter, build_pyramid
 from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
 from housescan_tpu_torch.kinfu.tsdf import pack_tw, tsdf_new
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import build_worklist
 from housescan_tpu_torch.kinfu.icp import DAMPINGS
@@ -416,6 +417,50 @@ def test_step_runs_through_every_kernel(cuda, dtype):
     cpu, traj_cpu = kinfu_run(cpu, frames[:3].cpu(), QQVGA)
     np.testing.assert_allclose(traj.cpu().numpy(), traj_cpu.numpy(), atol=1e-3)
     assert np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[3][3, :3]) < 0.02
+
+
+@pytest.mark.gpu
+def test_traced_step_waits_on_nothing_and_changes_nothing(cuda):
+    """Four frames with the program's tracing on (``utils.metrics``), the
+    last under PyTorch's sync debug mode: the spans and counters make the
+    host wait on the card nowhere before ``drain``; the poses, volume and
+    maps equal an untraced twin's bit for bit; the counters drained are
+    the step's own (K3's iterations within each level's budget)."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
+
+    def fused(traced):
+        st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                        device=cuda)
+        if traced:
+            GLOBAL_METRICS.enable()
+        try:
+            st, traj = kinfu_run(st, frames[:3], QQVGA)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st = kinfu_step(st, frames[3], QQVGA)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            GLOBAL_METRICS.disable()
+        return st, traj
+
+    GLOBAL_METRICS.drain()
+    want, want_traj = fused(False)
+    got, got_traj = fused(True)
+    rec = GLOBAL_METRICS.drain()
+    assert torch.equal(got_traj, want_traj) and torch.equal(got.pose, want.pose)
+    assert torch.equal(got.volume.data, want.volume.data)
+    assert torch.equal(got.model_maps, want.model_maps) and torch.equal(got.planes, want.planes)
+    frames_ = [sp.frame for sp in rec["spans"] if sp.name == "step"]
+    assert len(frames_) == 4
+    last = {c.name: c.value for c in rec["counters"] if c.frame == frames_[-1]}
+    for k, budget in enumerate((10, 5, 4)):
+        assert 1 <= last[f"icp.level{k}.iterations"] <= budget
+        assert isinstance(last[f"icp.level{k}.corr"], int)
+    assert last["integrate.listed_chunks"] > 0 and last["integrate.free_superblocks"] >= 1
+    names = {sp.name for sp in rec["spans"] if sp.frame == frames_[-1]}
+    assert {"track.icp.level0", "integrate.stream", "integrate.free", "raycast.tiles"} <= names
 
 
 def _carved_scene(cuda, n, dtype=torch.int32):
