@@ -23,8 +23,9 @@ float32 volume. Phases, each fatal on failure:
      register/spill lines;
   4. box-512 (packed): run the fusion orbit once (warm), then compare each
      kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
-     carve, K6 plane raycast) with its plain PyTorch version on the card
-     at the shapes the main path gives it; K5 on a free list of at least
+     carve, K6 plane raycast, K9 work-list prepass, bit-identical) with its
+     plain PyTorch version on the card at the shapes the main path gives
+     it; K5 on a free list of at least
      16 superblocks (the state after frame 20, else after frame 0), then
      timed on that list with its count set to 0 (an empty list, which
      must change nothing); K6 bit-identical on all 9 rows at 640x480 and,
@@ -232,6 +233,9 @@ KERNELS = {
     "planes_extract": ("housescan_tpu_torch/csrc/planes_extract.cu",
                        "housescan_tpu/ops/planes_pallas.py:372"),
     "tsdf_dense": ("housescan_tpu_torch/csrc/tsdf_dense.cu", "housescan_tpu/ops/tsdf_pallas.py:53"),
+    # no Pallas kernel: the reference's prepass is XLA array code
+    "chunk_select": ("housescan_tpu_torch/csrc/chunk_select.cu",
+                     "none (XLA code: housescan_tpu/ops/chunk_select.py:207)"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -390,12 +394,47 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
         compare_stream(st, depth, intr)
     errs["tsdf_free"], calls["tsdf_free"], bounds["tsdf_free"], n_sb, n_members = \
         compare_free(st, st0, depth, depth1, pose1, intr, card)
+    errs["chunk_select"], calls["chunk_select"], bounds["chunk_select"] = \
+        compare_chunk_select(st, depth, intr)
 
     # K6 at the main path's 640x480 (96 candidates a tile) and, on the same
     # planes, at 160x120 (fewer than 128 tiles: 384 a tile)
     for cam, key in ((intr, "raycast_tiles"), (Intrinsics(*SMALL_CAM), SMALL_K6)):
         errs[key], calls[key], bounds[key] = compare_raycast(st, cam, card)
     return errs, calls, bounds, dict(n_listed=n_listed, n_sb=n_sb, n_members=n_members)
+
+
+def compare_chunk_select(st, depth, intr):
+    """K9 against its plain version on the state's planes at its pose:
+    every row of the work list, its count and every field of the free list
+    bit-identical. Returns (0.0, timing calls, bound). Bound: the depth
+    image and each chunk's five flags of planes field 11 read once, the
+    work list (32 bytes a chunk) and the free list (16 bytes a superblock)
+    written once; ~1,000 float ops a chunk (40 corner projections, four
+    footprint look-ups) and 4 a pixel."""
+    from housescan_tpu_torch.ops.chunk_select import build_worklist, launch_chunk_select
+    from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, N_QUARTERS
+
+    vol, planes, pose = st.volume, st.planes, st.pose
+    wl, fwl, params, _, _ = free_inputs(vol, planes, depth, pose, intr)
+    kwl, kfwl = launch_chunk_select(depth, planes, params, intr, vol.dims, True)
+    torch.cuda.synchronize()
+    if not (torch.equal(kwl.desc, wl.desc) and torch.equal(kwl.count, wl.count)
+            and all(torch.equal(a, b) for a, b in zip(kfwl, fwl))):
+        fail("K9 chunk_select differs from its plain version (bit-identical required)")
+    n, n_sb = wl.desc.shape[0], fwl.bitmap.shape[0]
+    print(f"# K9 compare: {int(wl.count[0])} of {n} chunks listed, {int(fwl.count[0])} of {n_sb} "
+          "superblocks, bit-identical", flush=True)
+
+    def plain():
+        sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+        neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+        return build_worklist(depth, pose, intr, vol.dims, vol.voxel_size, vol.origin, vol.trunc,
+                              sat_quarters=sat, neg_flags=neg, free_split=True)
+
+    calls = (lambda: launch_chunk_select(depth, planes, params, intr, vol.dims, True), plain)
+    n_bytes = depth.numel() * 4 + n * (5 * 4 + 32) + n_sb * 16
+    return 0.0, calls, bound(n_bytes, 1000 * n + 4 * depth.numel())
 
 
 def compare_raycast(st, cam, card):
@@ -1452,7 +1491,8 @@ def run_dense(intr, poses, frames, device, card):
 # CUDA-event calls a timing (kernel, plain version)
 REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
         "tsdf_free": (20, 1), "raycast_tiles": (50, 2), SMALL_K6: (50, 2), "solve6": (200, 3),
-        "planes_extract": (20, 1), PACKED_K7: (20, 1), "tsdf_dense": (10, 1)}
+        "planes_extract": (20, 1), PACKED_K7: (20, 1), "tsdf_dense": (10, 1),
+        "chunk_select": (50, 3)}
 
 
 def warm_states(intr, poses, frames, device, dtype):
@@ -2074,7 +2114,7 @@ def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
     print(f"# sharded-{RES} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
     n_steps = N_FRAMES + 1
     want = {"bilateral": n_steps, "icp_level": 3 * n_steps, "tsdf_stream": 4 * n_steps,
-            "tsdf_free": 4 * n_steps, "raycast_tiles": 4 * n_steps}
+            "tsdf_free": 4 * n_steps, "raycast_tiles": 4 * n_steps, "chunk_select": 4 * n_steps}
     check_counts(f"sharded-{RES}", launches, plain, cuda_lib.KERNEL_PATH)
     if any(launches[k] != n for k, n in want.items()):
         fail(f"sharded-{RES}: launches {launches}, expected {want}")
@@ -2195,7 +2235,7 @@ def run_building(intr, device, card):
 # trace must name.
 TRACE_KERNELS = {"bilateral": "bilateral_kernel", "icp_level": "icp_level_kernel",
                  "tsdf_stream": "tsdf_stream_kernel", "tsdf_free": "tsdf_free_kernel",
-                 "raycast_tiles": "raycast_tiles_kernel"}
+                 "raycast_tiles": "raycast_tiles_kernel", "chunk_select": "chunk_classify_kernel"}
 
 
 def cli(args, what, secs, card, device="cuda"):

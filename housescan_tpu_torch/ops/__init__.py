@@ -17,6 +17,9 @@ PyTorch version, and a note on the Pallas kernel it replaces:
 - ``tsdf_cuda.tsdf_integrate_with_planes`` / ``tsdf_integrate_pallas``
   (K8, ``csrc/tsdf_dense.cu``: the dense column integrate with its fused
   plane fit)
+- ``chunk_select.launch_chunk_select`` (K9, ``csrc/chunk_select.cu``: the
+  work lists of ``tsdf_stream``'s integrate, which the reference computes
+  as XLA array code, not a Pallas kernel)
 
 ``tsdf_integrate_pallas`` is exported here, as the reference exports it.
 """

@@ -16,18 +16,29 @@ The reference packs two chunks per work-list entry into 14-bit half
 descriptors for the TPU's grid; this port lists single chunks as decoded
 descriptor rows (ci, cj, ck, class, level, v0, u0). Every chunk the
 reference updates is listed with the same descriptor; unlisted chunks
-keep their volume data and planes bit-identical. Plain tensor code, no
-kernel. X-pairing is not ported.
+keep their volume data and planes bit-identical. X-pairing is not
+ported.
 
 ``free_split=True`` also splits off the pure-free superblocks
 (``FreeWorkList``): (32, 32, 128)-voxel groups of 4 x 4 chunks whose
 every listed chunk is FREE and holds no observed negative tsdf. Their
 member chunks leave the main list and go to the free carve (K5,
 ``ops/tsdf_stream.py``).
+
+``build_worklist`` is the plain version, on any device. K9
+(``launch_chunk_select``, ``csrc/chunk_select.cu``) computes the same
+lists on the card, bit for bit, in three launches: the depth pyramid, a
+thread a chunk, the stable partition. The reference has no kernel here
+(its prepass is XLA array code); the plain version costs about 1,500
+small tensor operations a step, whose host dispatch bounded the fusion
+step. K9 reads the saturation and negative flags from planes field 11
+and its host values from ``ops/tsdf_stream._stream_params``' vector.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -35,7 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from housescan_tpu_torch.kinfu.camera import Intrinsics
+from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.cuda_lib import host_tensor
+from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C
 
 BIG = 1.0e9
 CLS_FREE = 0
@@ -362,6 +375,59 @@ def _free_superblocks(free, skip, neg_flags, nbx_x, nbx_y, nzc):
         bk=fc[2].contiguous(),
     )
     return fwl, in_free.reshape(n)
+
+
+N_PARAMS = 27  # _stream_params' slots K9 reads: the pose to the slab's first X block
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(h: int, w: int, n: int, n_sb: int) -> int:
+    out = (ctypes.c_int * 1)()
+    cuda_lib.check(cuda_lib.load().hs_chunk_select_scratch(h, w, n, n_sb, out),
+                   "hs_chunk_select_scratch")
+    return out[0]
+
+
+def launch_chunk_select(depth, planes, params, intr: Intrinsics, resolution, free_split: bool):
+    """K9: ``build_worklist``'s lists of one integrate on the card, from
+    ``depth`` (h, w), the volume's (or X-slab's) ``planes`` (their field 11
+    gives ``sat_quarters`` and ``neg_flags``) and ``params``
+    (``ops/tsdf_stream._stream_params``: pose, intrinsics, trunc, voxel
+    size, origin, image size, the slab's first X block). Returns
+    ``(WorkList, FreeWorkList or None)``: the free list where
+    ``free_split`` and the x and y chunk counts are divisible by 4. Raises
+    on a shape it does not take, before any launch."""
+    dims = (resolution,) * 3 if isinstance(resolution, int) else tuple(int(d) for d in resolution)
+    nbx, nby, nzc = dims[0] // 8, dims[1] // 8, dims[2] // 128
+    n = nbx * nby * nzc
+    if (n < 1 or depth.dim() != 2 or depth.shape[0] < 8 or depth.shape[1] < 8
+            or tuple(planes.shape) != (nbx, nby, nzc, N_FIELDS, NSUB_C)
+            or params.dim() != 1 or params.numel() < N_PARAMS):
+        raise ValueError(
+            f"chunk_select: bad volume {dims}, depth {tuple(depth.shape)}, planes "
+            f"{tuple(planes.shape)} or params {tuple(params.shape)} shape")
+    cuda_lib.require_cuda("chunk_select", depth, planes, params)
+    split = free_split and nbx % 4 == 0 and nby % 4 == 0
+    n_sb = n // 16 if split else 0
+    h, w = depth.shape
+    dev = depth.device
+    v_hi = [_mip_h(m) - WIN_V for m in (intr.height, -(-intr.height // 2), -(-intr.height // 4))]
+    u_hi = [_mip_w(m) - WIN_U for m in (intr.width, -(-intr.width // 2), -(-intr.width // 4))]
+    scratch = torch.empty(_scratch_bytes(h, w, n, n_sb), dtype=torch.uint8, device=dev)
+    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    fl = torch.empty((4, n_sb), dtype=torch.int32, device=dev) if split else None
+    cuda_lib.launch(
+        "hs_chunk_select", dev,
+        depth.data_ptr(), h, w, planes.data_ptr(), params.data_ptr(), nbx, nby, nzc, int(split),
+        *v_hi, *u_hi, scratch.data_ptr(), desc.data_ptr(), counts.data_ptr(),
+        fl.data_ptr() if split else None,
+    )
+    cuda_lib.launch_counts["chunk_select"] += 1
+    wl = WorkList(desc=desc, count=counts[:1])
+    if not split:
+        return wl, None
+    return wl, FreeWorkList(bitmap=fl[0], count=counts[1:], bi=fl[1], bj=fl[2], bk=fl[3])
 
 
 def _mip_h(h: int) -> int:

@@ -37,11 +37,12 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6",
-           "planes_extract", "tsdf_dense")
+           "planes_extract", "tsdf_dense", "chunk_select")
 # The kernels each path launches: the kernel path of kinfu_step
 # (use_pallas=True), its XLA path (use_pallas=False), and the dense path
 # (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas).
-KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles")
+KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles",
+               "chunk_select")
 XLA_PATH = ("bilateral", "solve6")
 DENSE_PATH = ("tsdf_dense", "planes_extract", "raycast_tiles")
 
@@ -92,6 +93,12 @@ _SIGNATURES = {
     "hs_raycast_tiles": [_P, _I, _I, _P, _P, _I, _I, _P],
     # a, b, pose, out, damping, max_step, stream
     "hs_solve6": [_P, _P, _P, _P, _F, _F, _P],
+    # depth, h, w, planes, params, nbx, nby, nzc, split, v_hi 0-2, u_hi 0-2,
+    # scratch, desc, counts, free list, stream
+    "hs_chunk_select": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P],
+    # h, w, chunks, superblocks, out: scratch bytes
+    "hs_chunk_select_scratch": [_I, _I, _I, _I, _P],
 }
 # Each kernel's occupancy query (arg, out): the device kernels it reports,
 # in order, at the launch configuration of its wrapper.
@@ -104,6 +111,7 @@ OCCUPANCY = {
     "solve6": ("hs_solve6_occupancy", ("solve6_kernel",)),
     "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32", "bfloat16")),
     "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel",)),
+    "chunk_select": ("hs_chunk_select_occupancy", ("hiz", "classify", "compact")),
 }
 for _fn, _ in OCCUPANCY.values():
     _SIGNATURES[_fn] = [_I, _P]

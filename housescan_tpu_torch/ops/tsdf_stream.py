@@ -88,6 +88,7 @@ from housescan_tpu_torch.ops.chunk_select import (
     WIN_V,
     FreeWorkList,
     build_worklist,
+    launch_chunk_select,
 )
 from housescan_tpu_torch.ops.planes import N_FIELDS, NSUB_C, chunk_plane_fields
 from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
@@ -139,8 +140,8 @@ def build_depth_mips(depth: torch.Tensor):
 
 
 def _stream_params(vol: TsdfVolume, pose, intr: Intrinsics, max_weight, nbx, nzc, bx0=0):
-    """K4's and K5's params: slot 24 the (global) X block count of the
-    sub-block ids, 26 the slab's first global X block."""
+    """K4's, K5's and K9's params: slot 24 the (global) X block count of
+    the sub-block ids, 26 the slab's first global X block."""
     return cuda_lib.f32_vector(
         [
             pose[:3, :3], pose[3, :3],
@@ -427,22 +428,26 @@ def tsdf_integrate_stream(
     if tuple(planes.shape) != planes_shape(dims):
         raise ValueError(f"planes shape {tuple(planes.shape)} != {planes_shape(dims)}")
     depth = depth.to(torch.float32)
+    cpu = vol.data.device.type == "cpu"
     with GLOBAL_METRICS.span("integrate.prepass"):
-        sat_q = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
-        geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
-        if free_split:
-            neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
-            wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0, neg_flags=neg_c,
-                                     free_split=True)
+        params = _stream_params(vol, pose, intr, max_weight, id_nbx, nzc, bx0)
+        if cpu:
+            cuda_lib.plain_counts["chunk_select"] += 1
+            sat_q = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+            geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
+            if free_split:
+                neg_c = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+                wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0,
+                                         neg_flags=neg_c, free_split=True)
+            else:
+                wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0), None
         else:
-            wl, fwl = build_worklist(*geom, sat_quarters=sat_q, block_x0=bx0), None
+            wl, fwl = launch_chunk_select(depth, planes, params, intr, dims, free_split)
     GLOBAL_METRICS.count("integrate.listed_chunks", wl.count)
     if fwl is not None:
         GLOBAL_METRICS.count("integrate.free_superblocks", fwl.count)
     with GLOBAL_METRICS.span("integrate.mips"):
         mips = build_depth_mips(depth)
-        params = _stream_params(vol, pose, intr, max_weight, id_nbx, nzc, bx0)
-    cpu = vol.data.device.type == "cpu"
     if fwl is not None:
         with GLOBAL_METRICS.span("integrate.free"):
             if cpu:

@@ -43,7 +43,8 @@ from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, ren
 from housescan_tpu_torch.kinfu.tsdf import pack_tw, tsdf_new
 from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 from housescan_tpu_torch.ops import cuda_lib
-from housescan_tpu_torch.ops.chunk_select import build_worklist
+from housescan_tpu_torch.ops.chunk_select import CLS_FREE as WL_FREE
+from housescan_tpu_torch.ops.chunk_select import CLS_REFINE, build_worklist
 from housescan_tpu_torch.kinfu.icp import DAMPINGS
 from housescan_tpu_torch.ops.icp_cuda import (
     BAND_H,
@@ -60,7 +61,7 @@ from housescan_tpu_torch.ops.raycast_tiles import (
     launch_raycast_kernel,
     raycast_tiles_plain,
 )
-from housescan_tpu_torch.ops.chunk_select import decode_free_worklist
+from housescan_tpu_torch.ops.chunk_select import decode_free_worklist, launch_chunk_select
 from housescan_tpu_torch.ops.planes_cuda import (
     _extract_params,
     extract_planes_plain,
@@ -675,6 +676,190 @@ def test_split_orbit_bit_identical_to_unsplit(cuda, scene, dtype):
     torch.cuda.synchronize()
     assert torch.equal(va.data, vb.data)
     assert torch.equal(pa, pb)
+
+
+def _k9_flags(planes, seed=0):
+    """``planes`` with random saturation flags (a quarter in 4) and
+    negative flags (a chunk in 10) OR'ed into field 11, so every flag path
+    of the prepass runs."""
+    g = torch.Generator(device=planes.device).manual_seed(seed)
+    out = planes.clone()
+    f = out[:, :, :, FIELD_SAT, :N_QUARTERS + 1]
+    odds = torch.tensor([0.25] * N_QUARTERS + [0.1], device=planes.device)
+    rnd = (torch.rand(f.shape, generator=g, device=planes.device) < odds).float()
+    out[:, :, :, FIELD_SAT, :N_QUARTERS + 1] = torch.maximum(f, rnd)
+    return out
+
+
+def _k9_room(cuda, intr, yaw=0.3):
+    """A 512^3 packed volume (the main path's 16,384 chunks) with one fused
+    orbit frame at ``intr``, its planes with random flags OR'ed in, and
+    the next frame with its pose."""
+    poses, frames = _stream(intr, 2, yaw, cuda)
+    vol = tsdf_new(512, 3.0, 0.03, dtype=torch.int32, device=cuda)
+    planes = torch.zeros(planes_shape(512), device=cuda)
+    tsdf_integrate_stream(vol, planes, frames[0], torch.from_numpy(poses[0]).to(cuda), intr)
+    return vol, _k9_flags(planes), frames[1], torch.from_numpy(poses[1]).to(cuda)
+
+
+def _k9_edges(cuda, fx, fy, band):
+    """Chunk (0, 0, 0) of a 128^3 volume at (0, 0, 1) m, 1/128 m voxels,
+    seen from the identity pose with cx = cy = 0: its first z-quarter's
+    image box is [0, fx / 16] x [0, fy / 16] exactly, and its band window
+    (quarters 0-2) the same. Depth 1.5 m everywhere but, with ``band``,
+    0.5 m on the columns [2 s, 4 s), s = max(fx, fy) / 16: in the dilated
+    footprint of the next level up, not of the quarter's own level; the
+    quarter's saturation flag then makes its level decide whether it
+    counts as behind."""
+    intr = Intrinsics(640, 480, fx, fy, 0.0, 0.0)
+    vol = tsdf_new(128, 1.0, 0.03, origin=torch.tensor([0.0, 0.0, 1.0]), dtype=torch.int32,
+                   device=cuda)
+    depth = torch.full((480, 640), 1.5, device=cuda)
+    planes = torch.zeros(planes_shape(128), device=cuda)
+    if band:
+        s = int(max(fx, fy) / 16)
+        depth[:, 2 * s : 4 * s] = 0.5
+        planes[:, :, :, FIELD_SAT, 0] = 1.0
+    return vol, planes, depth, torch.eye(4, device=cuda), intr
+
+
+def _k9_matches_plain(vol, planes, depth, pose, intr, dims, bx0=0, free_split=True):
+    """K9 and ``build_worklist`` on the same inputs (the flags from
+    ``planes`` field 11): every row of ``desc``, ``count`` and every field
+    of the free list identical. Returns K9's (WorkList, FreeWorkList)."""
+    params = _stream_params(vol, pose, intr, 128.0, dims[0] // 8, dims[2] // 128, bx0)
+    before = cuda_lib.launch_counts["chunk_select"]
+    wl, fwl = launch_chunk_select(depth, planes, params, intr, dims, free_split)
+    assert cuda_lib.launch_counts["chunk_select"] == before + 1
+    sat = planes[:, :, :, FIELD_SAT, :N_QUARTERS].reshape(-1, N_QUARTERS) > 0.5
+    geom = (depth, pose, intr, dims, vol.voxel_size, vol.origin, vol.trunc)
+    if free_split:
+        neg = planes[:, :, :, FIELD_SAT, N_QUARTERS].reshape(-1) > 0.5
+        pwl, pfwl = build_worklist(*geom, sat_quarters=sat, block_x0=bx0, neg_flags=neg,
+                                   free_split=True)
+    else:
+        pwl, pfwl = build_worklist(*geom, sat_quarters=sat, block_x0=bx0), None
+    torch.cuda.synchronize()
+    bad = (wl.desc != pwl.desc).any(dim=1).nonzero()[:4, 0].tolist()
+    assert not bad, (f"rows {bad} differ: K9 {wl.desc[bad].tolist()}, plain "
+                     f"{pwl.desc[bad].tolist()}; counts {int(wl.count[0])} / {int(pwl.count[0])}")
+    assert torch.equal(wl.count, pwl.count)
+    assert (fwl is None) == (pfwl is None)
+    if fwl is not None:
+        for name, a, b in zip(fwl._fields, fwl, pfwl):
+            assert torch.equal(a, b), f"free list {name} differs"
+    return wl, fwl
+
+
+K9_CASES = ["vga", "hd720", "slab", "unsplit", "nbx_not_div4", "all_invalid", "all_valid",
+            "refine", "level_edges", "window_edges"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K9_CASES)
+def test_chunk_select_kernel_bit_identical_to_plain(cuda, case):
+    """K9 against the plain ``build_worklist`` on the card, bit for bit on
+    every row of ``desc``, ``count`` and every free-list field: the main
+    path's VGA and HD frames on a fused room with saturation and negative
+    flags set; an X-slab (block_x0 16, 128 x 512 x 512); the free split
+    off; x chunks not divisible by 4 (no free list); an all-invalid frame
+    (nothing FREE, a zero-padded free list) and an all-valid one (the
+    free_global branch); the orbit's camera inside the volume, whose
+    plane cuts chunks, with holes in the frame (REFINE rows); image boxes exactly at the footprint
+    levels' edges (8 2^l px) and the band window's (22 / 60, 44 / 120 px),
+    and one float32 step above each."""
+    if case in ("vga", "hd720", "refine"):
+        vol, planes, d, p = _k9_room(cuda, HD720 if case == "hd720" else VGA)
+        if case == "refine":
+            # a hole in the frame: a quarter cut by the camera plane is then
+            # neither free (the image is not all valid) nor behind: it refines
+            d = d.clone()
+            d[:16, :16] = 0.0
+        wl, fwl = _k9_matches_plain(vol, planes, d, p, HD720 if case == "hd720" else VGA,
+                                    vol.dims)
+        n = int(wl.count[0])
+        assert n > 500
+        if case == "refine":
+            assert int((wl.desc[:n, 3] == CLS_REFINE).sum()) > 0
+        else:
+            assert int(fwl.count[0]) > 10
+    elif case == "slab":
+        vol, planes, d, p = _k9_room(cuda, VGA)
+        slab = vol._replace(data=vol.data[128:256].contiguous())
+        wl, fwl = _k9_matches_plain(slab, planes[16:32].contiguous(), d, p, VGA, slab.dims,
+                                    bx0=16)
+        assert int(wl.count[0]) > 50
+    elif case == "unsplit":
+        vol, planes, d, p = _k9_room(cuda, VGA)
+        wl, fwl = _k9_matches_plain(vol, planes, d, p, VGA, vol.dims, free_split=False)
+        assert fwl is None and int(wl.count[0]) > 500
+    elif case == "nbx_not_div4":
+        poses, frames = _stream(VGA, 2, 0.3, cuda)
+        base = tsdf_new(128, 0.75, 0.03, origin=torch.tensor([-0.14, -0.19, 0.5]),
+                        dtype=torch.int32, device=cuda)
+        vol = base._replace(data=torch.zeros((48, 64, 128), dtype=torch.int32, device=cuda))
+        planes = _k9_flags(torch.zeros(planes_shape(vol.dims), device=cuda))
+        wl, fwl = _k9_matches_plain(vol, planes, frames[1], torch.from_numpy(poses[1]).to(cuda),
+                                    VGA, vol.dims)
+        assert fwl is None and int(wl.count[0]) > 10
+    elif case in ("all_invalid", "all_valid"):
+        vol, planes, d, p = _k9_room(cuda, VGA)
+        d = torch.zeros_like(d) if case == "all_invalid" else torch.full_like(d, 2.0)
+        wl, fwl = _k9_matches_plain(vol, planes, d, p, VGA, vol.dims)
+        if case == "all_invalid":
+            # nothing is FREE, so no superblock is listed; chunks whose box is
+            # cut by the camera plane or spans past a level-4 cell stay listed
+            n = int(wl.count[0])
+            assert int((wl.desc[:n, 3] == WL_FREE).sum()) == 0 and int(fwl.count[0]) == 1
+            assert not any(bool(f.any()) for f in (fwl.bitmap, fwl.bi, fwl.bj, fwl.bk))
+        else:
+            assert int(fwl.count[0]) > 10
+    elif case == "level_edges":
+        # PyTorch's float32 log2 on the card gives the least l with
+        # max(span, 1) <= 8 2^l (K9's rule) at and beside the powers of two
+        spans = [np.float32(8 * 2 ** l) for l in range(5)]
+        spans += [np.nextafter(s, np.float32(np.inf)) for s in spans]
+        spans += [np.nextafter(s, np.float32(0)) for s in spans[:5]]
+        t = torch.tensor(np.array(spans, dtype=np.float32), device=cuda)
+        lvl = torch.clamp(torch.ceil(torch.log2(torch.clamp(t, min=1.0) / 8.0)), 0, 4)
+        rule = [next((l for l in range(4) if s <= 8 * 2 ** l), 4) for s in spans]
+        assert lvl.long().tolist() == rule
+        for l in range(4):
+            f = np.float32(128 * 2 ** l)
+            for fx in (f, np.nextafter(f, np.float32(np.inf))):
+                vol, planes, d, p, intr = _k9_edges(cuda, float(fx), float(fx), band=True)
+                _k9_matches_plain(vol, planes, d, p, intr, vol.dims)
+    else:  # window_edges: chunk (0, 0, 0) is listed first, BAND, at level 0 or just past it
+        up = lambda v: float(np.nextafter(np.float32(v), np.float32(np.inf)))  # noqa: E731
+        for fx, fy, level in ((960.0, 352.0, 0), (up(960.0), 352.0, 1), (960.0, up(352.0), 1),
+                              (1920.0, 704.0, 1), (up(1920.0), 704.0, 2),
+                              (1920.0, up(704.0), 2)):
+            vol, planes, d, p, intr = _k9_edges(cuda, fx, fy, band=False)
+            wl, _ = _k9_matches_plain(vol, planes, d, p, intr, vol.dims)
+            assert wl.desc[0, :5].tolist() == [0, 0, 0, 1, level]
+
+
+@pytest.mark.gpu
+def test_chunk_select_kernel_launches_once_a_step(cuda):
+    """Two steps of the kernel path after the first: K9's launch count
+    rises by one a step and no plain version runs; a profiled step runs
+    K9's three device kernels once each."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                    device=cuda)
+    st = kinfu_step(st, frames[0], QQVGA)
+    for k in (1, 2):
+        launched, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+        st = kinfu_step(st, frames[k], QQVGA)
+        assert cuda_lib.launch_counts["chunk_select"] == launched["chunk_select"] + 1
+        assert cuda_lib.plain_counts == plain
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        st = kinfu_step(st, frames[3], QQVGA)
+        torch.cuda.synchronize()
+    k9 = {e.key.split("_kernel")[0].split("chunk_")[-1]: e.count for e in prof.key_averages()
+          if "chunk_" in e.key and "_kernel" in e.key}
+    assert k9 == {"hiz": 1, "classify": 1, "compact": 1}
 
 
 @pytest.mark.gpu

@@ -50,10 +50,16 @@ from housescan_tpu.ops.chunk_select import decode_worklist as j_decode_worklist
 from housescan_tpu.ops.tsdf_stream import tsdf_integrate_stream as j_integrate
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.tsdf import tsdf_new
-from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_worklist
+from housescan_tpu_torch.ops import cuda_lib
+from housescan_tpu_torch.ops.chunk_select import (
+    build_worklist,
+    decode_worklist,
+    launch_chunk_select,
+)
 from housescan_tpu_torch.ops.planes_cuda import extract_subblock_planes
 from housescan_tpu_torch.ops.tsdf_stream import (
     FIELD_SAT,
+    _stream_params,
     planes_shape,
     stream_grid,
     tsdf_integrate_stream,
@@ -257,3 +263,48 @@ def test_stream_grid_walks_every_listed_row_once(n_desc, resident, n_sms, count)
     assert grid == min(n_desc, resident * n_sms)
     rows = [c for b in range(grid) for c in range(b, count, grid)]
     assert sorted(rows) == list(range(count))
+
+
+@pytest.mark.parametrize("free_split", [True, False], ids=["split", "unsplit"])
+def test_cpu_integrate_runs_the_plain_prepass_once_a_call(free_split):
+    """On CPU tensors every ``tsdf_integrate_stream`` call runs the plain
+    ``build_worklist`` once (``plain_counts["chunk_select"]``, as K4's and
+    K5's plain versions count) and launches no kernel."""
+    frames, poses = _scene()
+    vol = tsdf_new(RES, 3.0, TRUNC, dtype=torch.int32, device="cpu")
+    planes = torch.zeros(planes_shape(RES))
+    cuda_lib.reset_counts()
+    for k in range(2):
+        tsdf_integrate_stream(vol, planes, torch.from_numpy(frames[k]), torch.from_numpy(poses[k]),
+                              INTR, free_split=free_split)
+        assert cuda_lib.plain_counts["chunk_select"] == k + 1
+    assert not any(cuda_lib.launch_counts.values())
+
+
+@pytest.mark.parametrize("bad", ["planes", "depth_small", "depth_3d", "params", "volume"])
+def test_chunk_select_kernel_wrapper_raises_on_bad_shapes_before_launching(bad):
+    """K9's wrapper checks every shape before it asks for a device: a planes
+    tensor of another volume, a depth image under one 8 x 8 cell or not 2-D,
+    a params vector short of ``_stream_params``' slots and a volume with no
+    whole chunk raise ``ValueError`` naming the prepass, and nothing is
+    launched."""
+    frames, poses = _scene()
+    vol = tsdf_new(RES, 3.0, TRUNC, dtype=torch.int32, device="cpu")
+    depth, pose = torch.from_numpy(frames[0]), torch.from_numpy(poses[0])
+    planes = torch.zeros(planes_shape(RES))
+    params = _stream_params(vol, pose, INTR, 128.0, RES // 8, RES // 128)
+    dims = vol.dims
+    if bad == "planes":
+        planes = torch.zeros(planes_shape(2 * RES))
+    elif bad == "depth_small":
+        depth = depth[:4]
+    elif bad == "depth_3d":
+        depth = depth[None]
+    elif bad == "params":
+        params = params[:20]
+    else:
+        dims = (4, RES, RES)
+    cuda_lib.reset_counts()
+    with pytest.raises(ValueError, match="chunk_select"):
+        launch_chunk_select(depth, planes, params, INTR, dims, True)
+    assert not any(cuda_lib.launch_counts.values())
