@@ -43,6 +43,7 @@ from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step, pallas_su
 from housescan_tpu_torch.kinfu.ransac import detect_planes_to_dir
 from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state, save_scan_state
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, extract_surface_points
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 
 def scan_to_room_dir(
@@ -193,41 +194,52 @@ def write_room_outputs(
     """Extract the fused surface and write the reference-layout room
     directory (clouds, planes.txt + hulls, trajectory, optional mesh).
     ``timings`` receives the phases ``surface_points``, ``ransac`` (with
-    the planes.txt and hull files), ``mesh`` and ``writes``."""
+    the planes.txt and hull files), ``mesh`` and ``writes``.
+
+    With tracing on (``utils/metrics.GLOBAL_METRICS``) the export is the
+    span ``export`` with the children ``export.surface``,
+    ``export.ransac`` (the planes, the hulls and planes.txt),
+    ``export.mesh`` and ``export.writes``, and counts
+    ``export.surface_points``, ``export.planes`` and
+    ``export.mesh_triangles`` from values it already holds."""
     config = config or Config()
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = volume.data.device
 
-    with _timed(timings, "surface_points", dev):
-        full_dev = extract_surface_points(volume, max_points=max_points_full)
-        full = full_dev.cpu().numpy()
-    if len(full) > downsample_to:
-        idx = np.random.default_rng(0).choice(len(full), downsample_to, replace=False)
-        down = full[idx]
-    else:
-        down = full
-    with _timed(timings, "writes", dev):
-        save_pcd(out_dir / "cloud_bin.pcd", full)
-        save_pcd(out_dir / "cloud_downsampled.pcd", down)
-    with _timed(timings, "ransac", dev):
-        detect_planes_to_dir(
-            torch.from_numpy(down).to(dev),
-            out_dir,
-            max_planes=config.ransac.max_planes,
-            n_hypotheses=config.ransac.n_hypotheses,
-            inlier_threshold=config.ransac.inlier_threshold,
-            min_inliers=max(int(config.ransac.min_inlier_fraction * len(down)), 50),
-        )
-    with _timed(timings, "writes", dev):
-        np.savez(
-            out_dir / "trajectory.npz",
-            poses=np.stack(poses) if len(poses) else np.zeros((0, 4, 4), np.float32),
-            icp_rmse=icp_rmse,
-        )
-    if write_mesh:
-        with _timed(timings, "mesh", dev):
-            mesh = marching_cubes(volume)
-        with _timed(timings, "writes", dev):
-            save_ply(out_dir / "mesh.ply", mesh)
+    with GLOBAL_METRICS.span("export"):
+        with GLOBAL_METRICS.span("export.surface"), _timed(timings, "surface_points", dev):
+            full_dev = extract_surface_points(volume, max_points=max_points_full)
+            full = full_dev.cpu().numpy()
+        GLOBAL_METRICS.count("export.surface_points", len(full))
+        if len(full) > downsample_to:
+            idx = np.random.default_rng(0).choice(len(full), downsample_to, replace=False)
+            down = full[idx]
+        else:
+            down = full
+        with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+            save_pcd(out_dir / "cloud_bin.pcd", full)
+            save_pcd(out_dir / "cloud_downsampled.pcd", down)
+        with GLOBAL_METRICS.span("export.ransac"), _timed(timings, "ransac", dev):
+            det = detect_planes_to_dir(
+                torch.from_numpy(down).to(dev),
+                out_dir,
+                max_planes=config.ransac.max_planes,
+                n_hypotheses=config.ransac.n_hypotheses,
+                inlier_threshold=config.ransac.inlier_threshold,
+                min_inliers=max(int(config.ransac.min_inlier_fraction * len(down)), 50),
+            )
+        GLOBAL_METRICS.count("export.planes", det.n_planes)
+        with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+            np.savez(
+                out_dir / "trajectory.npz",
+                poses=np.stack(poses) if len(poses) else np.zeros((0, 4, 4), np.float32),
+                icp_rmse=icp_rmse,
+            )
+        if write_mesh:
+            with GLOBAL_METRICS.span("export.mesh"), _timed(timings, "mesh", dev):
+                mesh = marching_cubes(volume)
+            GLOBAL_METRICS.count("export.mesh_triangles", len(mesh.faces))
+            with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+                save_ply(out_dir / "mesh.ply", mesh)
     return out_dir

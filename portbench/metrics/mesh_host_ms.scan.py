@@ -1,0 +1,13 @@
+"""Median host milliseconds a scan in the program's ``export.mesh`` span
+(the marching tetrahedra and the mesh's copy to the host), over the
+extra scans that the program traces with the profiler off
+(``harness/scan_trace.py``, pass (a))."""
+
+from harness import scan_trace
+
+
+def read(ctx):
+    p = scan_trace.passes(ctx)
+    if p is None or "export.mesh" not in p.host_ms:
+        return None
+    return p.host_ms["export.mesh"]

@@ -28,8 +28,17 @@ a fully observed one and one with a single observed sub-block, at a
 non-cubic size, K8's chunk
 classes too (the fit sums in float64 and rounds once; K8's bilinear
 repeats its plain version's operation order), K8 at R = 128, 256 and 512,
-on SKIP and FREE columns and with a surface on a chunk boundary.
+on SKIP and FREE columns and with a surface on a chunk boundary. At
+room-vga-1024 (1024^3 over 6 m, float32: 2^31 cells), one 3-frame scan
+of the room-scan traffic through `portbench/drivers/scan.py` holds every
+number of its cell's comparison with the plain reference
+(``portbench/reference/scan.py``) within the cell's limits, and K6 is
+bit-identical to its plain version on that volume's planes.
 """
+
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1613,3 +1622,54 @@ def test_three_floor_building_on_card(cuda, tmp_path):
             off = float(fitted[j].mean()[0] - fitted[i].mean()[0])
             assert 2.3 < off < 3.1, f"X offset {off:.2f} m on floor {fl}"
     assert n_checked == 4
+
+
+def _portbench():
+    bench = str(Path(__file__).resolve().parents[1] / "portbench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    from harness import spec
+
+    return spec
+
+
+@pytest.mark.gpu
+def test_room_scan_at_1024_matches_the_reference(cuda):
+    """``scan_to_room_dir`` at room-vga-1024 on 3 frames of the
+    room-scan traffic: every frame tracked, and poses, clouds, planes,
+    hulls and mesh within the cell's limits of the plain reference."""
+    spec = _portbench()
+    cell = spec.resolve(spec.load_benchmark(), "room-vga-1024.room-scan")
+    t = cell.traffic  # the first 3 frames: the cell's yaw a frame kept
+    first3 = dict(t, frames=3, yaw_range_rad=t["yaw_range_rad"] * 3 / t["frames"])
+    cell = cell._replace(traffic=first3)
+    res = spec.driver("scan").run(cell, 2**31 + 5, 0.0, False, time.time())
+    assert res.window.scans == 1 and res.failed == 0
+    over = {k: v for k, v in res.numbers.items() if not v <= cell.limits["numbers"][k]}
+    assert not over, res.numbers
+
+
+@pytest.mark.gpu
+def test_raycast_kernel_bit_identical_on_the_room_scan_planes(cuda):
+    """K6 on the planes of a 1024^3 volume over 6 m (2,097,152 sub-blocks)
+    after the room-scan's first 3 frames, fused at their true poses: all 9
+    rows bit-identical to the plain version at the last pose."""
+    spec = _portbench()
+    cell = spec.resolve(spec.load_benchmark(), "room-vga-1024.room-scan")
+    drv = spec.driver("scan")
+    t = cell.traffic
+    first3 = dict(t, frames=3, yaw_range_rad=t["yaw_range_rad"] * 3 / t["frames"])
+    inputs = drv.make_inputs(cell.config, first3, 2**31 + 6, cuda)
+    vol = tsdf_new(1024, 6.0, 0.03, device=cuda)
+    planes = torch.zeros(planes_shape(1024), device=cuda)
+    for d, p in zip(inputs.frames, inputs.poses):
+        tsdf_integrate_stream(vol, planes, torch.from_numpy(d).to(cuda),
+                              torch.from_numpy(p).to(cuda), VGA)
+    pose = torch.from_numpy(inputs.poses[-1]).to(cuda)
+    cand = build_tile_candidates(planes, pose, VGA, vol)
+    params = _ray_params(pose, VGA, 0.3, 5)
+    k = launch_raycast_kernel(cand, params, 480, 640)
+    q = raycast_tiles_plain(cand, params, 480, 640)
+    torch.cuda.synchronize()
+    assert torch.equal(k, q)
+    assert int((q[0] > 0).sum()) > 20000

@@ -5,7 +5,9 @@ kernels) traced and untraced.
 Tracing changes no arithmetic; every span of the step appears where and
 as often as the layers run, nested in its parent and sharing its frame;
 the counters equal what the step computed; and with tracing off nothing
-is recorded and ``span`` hands out one shared object.
+is recorded and ``span`` hands out one shared object. The scan's export
+(``kinfu/scan.write_room_outputs``) likewise: its spans nest under
+``export`` and its counters equal what it wrote.
 """
 
 import numpy as np
@@ -14,6 +16,8 @@ import torch
 
 from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+from housescan_tpu_torch.kinfu.scan import write_room_outputs
+from housescan_tpu_torch.kinfu.tsdf import tsdf_new
 from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
 from housescan_tpu_torch.ops.chunk_select import build_worklist, decode_worklist
 from housescan_tpu_torch.ops.tsdf_stream import FIELD_SAT, N_QUARTERS
@@ -189,3 +193,44 @@ def test_drain_reads_tensors_and_numbers_and_forgets():
     with m.span("open"):
         with pytest.raises(RuntimeError):
             m.drain()
+
+
+def _box_volume():
+    """A 64^3 volume over 1 m holding the inside of a 0.6 m box, every
+    voxel observed: six walls for RANSAC, a closed surface for the mesh."""
+    vol = tsdf_new(64, 1.0, 0.03, device="cpu")
+    c = (torch.arange(64, dtype=torch.float32) + 0.5) / 64 - 0.5
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    inside = 0.3 - torch.maximum(torch.maximum(x.abs(), y.abs()), z.abs())
+    vol.data[0] = torch.clamp(inside / 0.03, -1.0, 1.0)
+    vol.data[1] = 1.0
+    return vol
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["traced", "untraced"])
+def test_export_spans_nest_and_counters_equal_what_it_wrote(tmp_path, traced):
+    vol = _box_volume()
+    if traced:
+        GLOBAL_METRICS.enable()
+    room = write_room_outputs(vol, [np.eye(4, dtype=np.float32)], tmp_path / "room",
+                              max_points_full=20000, downsample_to=4000, write_mesh=True)
+    GLOBAL_METRICS.disable()
+    rec = GLOBAL_METRICS.drain()
+    if not traced:
+        assert rec == {"spans": [], "counters": []}
+        return
+    spans = rec["spans"]
+    assert spans[0].name == "export" and spans[0].parent == -1
+    assert {s.name for s in spans[1:]} == {"export.surface", "export.ransac", "export.mesh",
+                                           "export.writes"}
+    assert [s.name for s in spans].count("export.writes") == 3
+    for s in spans[1:]:
+        assert s.parent == 0 and s.frame == spans[0].frame
+        assert spans[0].start_ns <= s.start_ns <= s.end_ns <= spans[0].end_ns
+    counts = {c.name: c.value for c in rec["counters"]}
+    n_points = int((room / "cloud_bin.pcd").read_bytes().split(b"POINTS ")[1].split()[0])
+    n_planes = len((room / "planes.txt").read_text().split()) // 4
+    n_faces = int((room / "mesh.ply").read_bytes().split(b"element face ")[1].split()[0])
+    assert counts == {"export.surface_points": n_points, "export.planes": n_planes,
+                      "export.mesh_triangles": n_faces}
+    assert n_points > 4000 and n_planes >= 4 and n_faces > 1000
