@@ -23,7 +23,8 @@ float32 volume. Phases, each fatal on failure:
      register/spill lines;
   4. box-512 (packed): run the fusion orbit once (warm), then compare each
      kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
-     carve, K6 plane raycast, K9 work-list prepass, bit-identical) with its
+     carve, K6 plane raycast, K9 work-list prepass, K10 marching
+     tetrahedra on the warm volume, bit-identical) with its
      plain PyTorch version on the card at the shapes the main path gives
      it; K5 on a free list of at least
      16 superblocks (the state after frame 20, else after frame 0), then
@@ -60,8 +61,11 @@ float32 volume. Phases, each fatal on failure:
      reference-layout file present and parsing, >= 2 planes and a
      non-empty mesh inside the volume; print the pose error and the host
      time of each phase (fusion, surface points, RANSAC, marching
-     tetrahedra, writes), then RANSAC once more on the same cloud, split
-     into the detection on the card and the host's hulls;
+     tetrahedra, writes); K10 against its plain version on the card on
+     the float32 volume the scan meshed (the main path's layout and shape:
+     bit-identical, one K10 call and no plain one, timed as phase 4 times
+     it); then RANSAC once more on the same cloud, split into the
+     detection on the card and the host's hulls;
   9. xla-480: the orbit on the XLA path, a warm pass over frames 0-2,
      then a timed pass with launch counts: pose error <= 5 mm, 20/20
      tracked, model-map coverage >= 0.5, K1 and K2 launched, K3-K8 not, no
@@ -73,8 +77,9 @@ float32 volume. Phases, each fatal on failure:
      that must not make the host wait on the card;
  10. scan-480: ``scan_to_room_dir`` at ``Config()`` with a 480^3 volume,
      which takes the XLA path unasked, into
-     ``build/chip_smoke/scan_room_480``, with phase 8's gates and launch
-     counts showing K1 and K2 and no plain version;
+     ``build/chip_smoke/scan_room_480``, with phase 8's gates, K10 on its
+     480^3 volume, and launch counts showing K1 and K2 and no plain
+     version;
  11. dense-512: K8 (``tsdf_integrate_with_planes``) fuses the 21 frames at
      their true poses into a fresh float32 volume, then ``raycast_pallas``
      (K7, K6) renders the last and the first pose; K8, K7 and K6 launched,
@@ -184,6 +189,16 @@ float32 volume. Phases, each fatal on failure:
      after the reload bit-identical to the one before; then
      ``dryrun_multichip(4, device="cuda:0")``.
 
+``python3 chip_smoke.py --mesh`` runs phases 1-3, then K10 (the scan's
+marching-tetrahedra mesh) against its plain version on the card and
+timed: on box-512's warm orbit volume in each layout (packed, float32,
+bfloat16) and on a 1024^3 float32 volume over 6 m holding the
+room-scan traffic's room fused at its 21 true poses (the room cell's
+shape, which the whole run does not reach); each with its triangles,
+its three kernels' device time, the call's host time, the plain
+version's, the bound and the host waits, then its resident blocks an
+SM.
+
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
 (K1, K3-K6) and of K7 on box-512's packed volume, with K1's device time
@@ -236,6 +251,9 @@ KERNELS = {
     # no Pallas kernel: the reference's prepass is XLA array code
     "chunk_select": ("housescan_tpu_torch/csrc/chunk_select.cu",
                      "none (XLA code: housescan_tpu/ops/chunk_select.py:207)"),
+    # no Pallas kernel: the reference's mesh is XLA array code too
+    "marching_tets": ("housescan_tpu_torch/csrc/marching_tets.cu",
+                      "none (XLA code: housescan_tpu/kinfu/marching_cubes.py:363)"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -396,6 +414,8 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
         compare_free(st, st0, depth, depth1, pose1, intr, card)
     errs["chunk_select"], calls["chunk_select"], bounds["chunk_select"] = \
         compare_chunk_select(st, depth, intr)
+    errs["marching_tets"], calls["marching_tets"], bounds["marching_tets"] = \
+        compare_mesh(st.volume, f"box-{RES} packed", card)
 
     # K6 at the main path's 640x480 (96 candidates a tile) and, on the same
     # planes, at 160x120 (fewer than 128 tiles: 384 a tile)
@@ -435,6 +455,114 @@ def compare_chunk_select(st, depth, intr):
     calls = (lambda: launch_chunk_select(depth, planes, params, intr, vol.dims, True), plain)
     n_bytes = depth.numel() * 4 + n * (5 * 4 + 32) + n_sb * 16
     return 0.0, calls, bound(n_bytes, 1000 * n + 4 * depth.numel())
+
+
+def compare_mesh(vol, tag, card, reps=5):
+    """K10 against its plain version (on the card) on ``vol``: the same
+    vertex bytes, faces and count, one K10 call and no plain one. Prints
+    the triangles, K10's three kernels' device time (the profiler), the
+    call's host ms (to the Mesh on the host), the plain version's host ms,
+    the bound and where the call made the host wait. Returns (0.0, timing
+    calls, bound). Bound: every cell of the volume read once (8 bytes
+    float32, 4 packed and bfloat16) and the triangles written once (36
+    bytes each); ~40 float ops a cell and ~250 a triangle."""
+    from housescan_tpu_torch.kinfu.marching_cubes import marching_cubes, marching_cubes_plain
+    from housescan_tpu_torch.ops import cuda_lib
+
+    launched, plain = cuda_lib.launch_counts["marching_tets"], cuda_lib.plain_counts["marching_tets"]
+    got = marching_cubes(vol)
+    if (cuda_lib.launch_counts["marching_tets"] - launched,
+            cuda_lib.plain_counts["marching_tets"] - plain) != (1, 0):
+        fail(f"{tag}: marching_cubes on the card did not make exactly one K10 call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = marching_cubes_plain(vol)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if got.vertices.tobytes() != want.vertices.tobytes() or \
+            not np.array_equal(got.faces, want.faces):
+        fail(f"K10 marching_tets differs from its plain version on {tag} "
+             f"({len(got.faces)} vs {len(want.faces)} triangles; bit-identical required)")
+    n = len(got.faces)
+    del want
+    cells = int(np.prod(vol.dims))
+    n_bytes = cells * (4 if vol.data.dim() == 3 else 2 * vol.data.element_size()) + 36 * n
+    b = bound(n_bytes, 40 * cells + 250 * n)
+    dev_us = kernel_device_us(lambda: marching_cubes(vol), reps)
+    k10_ms = sum(us for k, (us, _) in dev_us.items() if k.startswith("void mt_")
+                 or k.startswith("mt_")) / 1e3
+    kernels = {k.split("<")[0].replace("void ", ""): round(us / 1e3, 4)
+               for k, (us, _) in dev_us.items() if "mt_" in k}
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marching_cubes(vol)
+        host.append((time.perf_counter() - t0) * 1e3)
+    _, syncs = host_syncs(lambda: marching_cubes(vol))
+    # the call's second wait alone: n triangles copied to pinned memory
+    tris, pinned = torch.empty((n, 9), device=vol.data.device), torch.empty((n, 9), pin_memory=True)
+    copy = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned.copy_(tris)
+        copy.append((time.perf_counter() - t0) * 1e3)
+    del tris, pinned
+    print(f"# K10 compare ({tag}, {vol.dims}): {n} triangles, bit-identical; kernels "
+          f"{k10_ms:.4f} ms device {json.dumps(kernels)}; the call {np.median(host):.3f} ms host "
+          f"(median of {reps}, to the Mesh; its copy to pinned memory {np.median(copy):.3f} ms); "
+          f"plain {plain_ms:.1f} ms host; bound {b[0]:.4f} ms ({b[1]}; {n_bytes / 1e9:.3f} GB); "
+          f"host waits {syncs} [{card}]", flush=True)
+    return 0.0, (lambda: marching_cubes(vol), lambda: marching_cubes_plain(vol)), b
+
+
+def room_volume(intr, device, res=1024):
+    """The room-scan traffic's room (the furnished room and its furniture
+    stretched x2 in x and z) fused at its 21 true orbit poses, without
+    noise, into a res^3 float32 volume over 6 m by the kernel path's
+    integrate."""
+    from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
+    from housescan_tpu_torch.kinfu.tsdf import tsdf_new
+    from housescan_tpu_torch.ops.tsdf_stream import planes_shape, tsdf_integrate_stream
+
+    half, boxes = furnished_room()
+    half, boxes = half.copy(), boxes.copy()
+    half[[0, 2]] *= 2.0
+    boxes[:, :, [0, 2]] *= 2.0
+    poses = orbit_poses(N_FRAMES + 1, radius=0.25, yaw_range=0.4, pitch=0.25)
+    frames = render_depth_stream(intr, poses, half, boxes, device=device)
+    vol = tsdf_new(res, 6.0, 0.03, device=device)
+    planes = torch.zeros(planes_shape(res), device=device)
+    for d, p in zip(frames, poses):
+        tsdf_integrate_stream(vol, planes, d, torch.from_numpy(p).to(device), intr)
+    del planes, frames
+    return vol
+
+
+def mesh_probe(intr, poses, frames, device, card):
+    """``--mesh``: K10 against its plain version and timed (``compare_mesh``,
+    then phase 12's CUDA-event times) on box-512's warm orbit volume in
+    each layout and on the 1024^3 room volume; K10's resident blocks an
+    SM."""
+    from housescan_tpu_torch.ops import cuda_lib
+
+    calls, bounds = {}, {}
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        st, _, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+        name = f"marching_tets@box-{RES}{TAGS[dtype]}"
+        _, calls[name], bounds[name] = compare_mesh(st.volume, f"box-{RES} {LAYOUTS[dtype]}", card)
+        REPS[name] = REPS["marching_tets"]
+        time_kernels([name], calls, bounds, card)
+        del st, calls[name]
+        torch.cuda.empty_cache()
+    vol = room_volume(intr, device)
+    name = "marching_tets@room-1024"
+    _, calls[name], bounds[name] = compare_mesh(vol, "room-1024 float32", card)
+    REPS[name] = (REPS["marching_tets"][0], 1)
+    time_kernels([name], calls, bounds, card)
+    print(f"# K10 resident blocks an SM: {json.dumps(cuda_lib.occupancy('marching_tets'))} "
+          f"[{card}]", flush=True)
 
 
 def compare_raycast(st, cam, card):
@@ -836,14 +964,21 @@ def run_scan(intr, poses, frames, card, res=RES):
         layouts.append((state.volume.data.dtype, tuple(state.volume.data.shape)))
         return state
 
-    scan.kinfu_init = recording_init
+    # and the volume it meshes, for K10's comparison after the scan
+    mesh_fn, meshed = scan.marching_cubes, []
+
+    def recording_mesh(volume, *args, **kwargs):
+        meshed.append(volume)
+        return mesh_fn(volume, *args, **kwargs)
+
+    scan.kinfu_init, scan.marching_cubes = recording_init, recording_mesh
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
     try:
         scan.scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True,
                               timings=timings)
     finally:
-        scan.kinfu_init = init
+        scan.kinfu_init, scan.marching_cubes = init, mesh_fn
     total = time.perf_counter() - t0
     if layouts != [(torch.float32, (2, res, res, res))]:
         fail(f"the scan at {res}^3 fused into {layouts}, not the float32 volume")
@@ -852,7 +987,7 @@ def run_scan(intr, poses, frames, card, res=RES):
     print(f"# scan {res}^3 ({tag}) launches {json.dumps(launches)} plain {json.dumps(plain)}",
           flush=True)
     check_counts(f"the scan at {res}^3", launches, plain,
-                 cuda_lib.KERNEL_PATH if kernel_path else cuda_lib.XLA_PATH)
+                 (cuda_lib.KERNEL_PATH if kernel_path else cuda_lib.XLA_PATH) + ("marching_tets",))
 
     traj = np.load(os.path.join(room, "trajectory.npz"))["poses"]
     if traj.shape != (N_FRAMES + 1, 4, 4) or not np.isfinite(traj).all():
@@ -885,6 +1020,9 @@ def run_scan(intr, poses, frames, card, res=RES):
     print(f"# scan phases (host clock, each ending in a synchronize): {phases}; "
           f"total {total:.4f} s; fusion {timings['fusion'] / (N_FRAMES + 1) * 1000:.3f} ms/frame "
           f"[{card}]", flush=True)
+    if len(meshed) != 1:
+        fail(f"the scan at {res}^3 meshed {len(meshed)} volumes, not 1")
+    compare_mesh(meshed.pop(), f"scan {res}^3 float32", card)
     if not kernel_path:
         return launches
 
@@ -1492,7 +1630,7 @@ def run_dense(intr, poses, frames, device, card):
 REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
         "tsdf_free": (20, 1), "raycast_tiles": (50, 2), SMALL_K6: (50, 2), "solve6": (200, 3),
         "planes_extract": (20, 1), PACKED_K7: (20, 1), "tsdf_dense": (10, 1),
-        "chunk_select": (50, 3)}
+        "chunk_select": (50, 3), "marching_tets": (10, 1)}
 
 
 def warm_states(intr, poses, frames, device, dtype):
@@ -2440,7 +2578,7 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
         plain = take_counts()
         scan_launches = {k: launches[k] - scan_launches[k] for k in KERNELS}
         if on_card:
-            check_counts("cli scan", scan_launches, plain, cuda_lib.KERNEL_PATH)
+            check_counts("cli scan", scan_launches, plain, cuda_lib.KERNEL_PATH + ("marching_tets",))
         traj = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
         err = relative_error_mm(traj, poses[-1], poses[0])
         lib = uncounted(library_trajectory, frames_mm.astype(np.float32) * np.float32(0.001),
@@ -2679,6 +2817,9 @@ def main() -> None:
     intr, poses, frames = workload(device)
     if sys.argv[1:] == ["--probe"]:
         probe(intr, poses, frames, device, card)
+        return
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_probe(intr, poses, frames, device, card)
         return
 
     # 4. box-512 (packed): warm orbit, then each kernel against its plain version

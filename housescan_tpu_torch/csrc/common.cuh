@@ -51,10 +51,11 @@ __device__ __forceinline__ int hs_pack(float t, float w) {
 }
 
 // Volume storage: the template parameter of the kernels that read and
-// write the TSDF (K4, K5, K7, K8). The math is float32 on every layout;
-// a store only converts at load and store. ``load`` gives the float tsdf
-// and weight of cell ``a`` (the flat (x, y, z) index), ``store`` writes
-// them and returns the tsdf as stored, which is what a later read gives.
+// write the TSDF (K4, K5, K7, K8, K10). The math is float32 on every
+// layout; a store only converts at load and store. ``load`` gives the
+// float tsdf and weight of cell ``a`` (the flat (x, y, z) index),
+// ``store`` writes them and returns the tsdf as stored, which is what a
+// later read gives.
 //   HsPacked: the packed (X, Y, Z) int32 grid;
 //   HsPlanar<float>: the (2, X, Y, Z) float32 array, tsdf at data[0] and
 //   weight at data[1], X * Y * Z cells further on (a 64-bit offset: at

@@ -10,8 +10,12 @@
   * ``run_watched(fn)``: rerun ``fn`` whenever a package source changes.
 
 A reload re-executes every module in place, so classes and module state
-(``ops.cuda_lib``'s counters and loaded library) are new objects after
-it: fetch modules again through ``sys.modules`` or ``importlib``.
+(``ops.cuda_lib``'s loaded library) are new objects after it: fetch
+modules again through ``sys.modules`` or ``importlib``. The shared
+tracing and counting objects are kept (``utils.metrics.GLOBAL_METRICS``
+and ``NO_SPAN``, ``ops.cuda_lib.launch_counts`` and ``plain_counts``):
+a name imported before the reload and one imported after it are the same
+object.
 """
 
 from __future__ import annotations

@@ -12,22 +12,26 @@ triangle slot (tet * 2 + slot), then cell raster order.
 
 The reference builds dense per-cell slot arrays for a whole slab and
 compacts them into a speculative fixed-size buffer, a TPU shape device.
-Here each slab first lists its active cells (observed, corner signs
-mixed; a cell whose corners all share a sign emits nothing) with
-``torch.nonzero``, evaluates the tets on those cells only, and keeps the
-valid slots; only the real triangles go to the host. Plain tensor code:
-the reference computes this in XLA, outside any Pallas kernel.
+For a CUDA volume ``marching_cubes`` launches K10
+(``ops/marching_tets.launch_marching_tets``, ``csrc/marching_tets.cu``):
+the same soup, bit for bit, from one call of three kernels. For a CPU
+volume it runs ``marching_cubes_plain``: each slab first lists its active
+cells (observed, corner signs mixed; a cell whose corners all share a
+sign emits nothing) with ``torch.nonzero``, evaluates the tets on those
+cells only in float32 (a bfloat16 volume widened, as the reference
+widens it), and keeps the valid slots; only the real triangles go to the
+host. The reference computes this in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
-
-import sys
 
 import numpy as np
 import torch
 
 from housescan_tpu_torch.io.ply import Mesh
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
+from housescan_tpu_torch.ops import cuda_lib
+from housescan_tpu_torch.ops.marching_tets import capped, launch_marching_tets, soup_mesh
 
 # Cube corners in standard MC ordering (bit k of a case = corner k inside).
 _CORNERS = np.array(
@@ -127,13 +131,23 @@ def _cell_triangles(corner_t, base, origin, voxel_size):
 
 def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0,
                    max_triangles: int = 0) -> Mesh:
-    """Zero-isosurface triangle soup of a TSDF volume in either layout
-    (host Mesh: (3T, 3) float32 vertices, faces 0..3T-1). A nonzero
-    ``max_triangles`` caps the mesh: a larger one keeps its first
-    ``max_triangles`` triangles and says so on stderr."""
+    """Zero-isosurface triangle soup of a TSDF volume in any layout (host
+    Mesh: (3T, 3) float32 vertices, faces 0..3T-1), by X-slabs of
+    ``slab`` cells. A nonzero ``max_triangles`` caps the mesh: a larger
+    one keeps its first ``max_triangles`` triangles and says so on
+    stderr. K10 for a CUDA volume, the plain version for a CPU one."""
+    if vol.data.is_cuda:
+        return launch_marching_tets(vol, slab, min_weight, max_triangles)
+    cuda_lib.plain_counts["marching_tets"] += 1
+    return marching_cubes_plain(vol, slab, min_weight, max_triangles)
+
+
+def marching_cubes_plain(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0,
+                         max_triangles: int = 0) -> Mesh:
+    """``marching_cubes`` as tensor code on the volume's device."""
     nx, ny, nz = vol.dims
     slab = min(slab, nx - 1)
-    empty = Mesh(vertices=np.zeros((0, 3), np.float32), faces=np.zeros((0, 3), np.int32))
+    empty = soup_mesh(np.zeros((0, 9), np.float32))
     if slab <= 0:
         return empty
     origin = vol.origin.to(torch.float32)
@@ -141,8 +155,8 @@ def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0,
     out = []
     for i in range(-(-(nx - 1) // slab)):
         x0 = min(i * slab, nx - 1 - slab)  # the last slab is clamped ...
-        ts = t_all[x0 : x0 + slab + 1]
-        ws = w_all[x0 : x0 + slab + 1]
+        ts = t_all[x0 : x0 + slab + 1].float()  # bfloat16 widened; float32 as is
+        ws = w_all[x0 : x0 + slab + 1].float()
         ok = (ws >= min_weight) & (ws > 0)
         observed = any_neg = all_neg = None
         for dx, dy, dz in _CORNERS:
@@ -163,14 +177,5 @@ def marching_cubes(vol: TsdfVolume, slab: int = 16, min_weight: float = 1.0,
     if not out:
         return empty
     tris = torch.cat(out)  # (T, 9): only the real triangles
-    if max_triangles and len(tris) > max_triangles:
-        print(
-            f"marching_cubes: {len(tris)} triangles exceed capacity {max_triangles}; "
-            "mesh truncated (raise max_triangles)",
-            file=sys.stderr,
-        )
-        tris = tris[:max_triangles]
-    tris = tris.cpu().numpy()
-    vertices = tris.reshape(-1, 3).astype(np.float32)
-    faces = np.arange(len(vertices), dtype=np.int32).reshape(-1, 3)
-    return Mesh(vertices=vertices, faces=faces)
+    tris = tris[: capped(len(tris), max_triangles)]
+    return soup_mesh(tris.cpu().numpy())

@@ -20,6 +20,9 @@ PyTorch version, and a note on the Pallas kernel it replaces:
 - ``chunk_select.launch_chunk_select`` (K9, ``csrc/chunk_select.cu``: the
   work lists of ``tsdf_stream``'s integrate, which the reference computes
   as XLA array code, not a Pallas kernel)
+- ``marching_tets.launch_marching_tets`` (K10, ``csrc/marching_tets.cu``:
+  the scan's marching-tetrahedra mesh, ``kinfu/marching_cubes``' CUDA
+  path; XLA array code in the reference too)
 
 ``tsdf_integrate_pallas`` is exported here, as the reference exports it.
 """

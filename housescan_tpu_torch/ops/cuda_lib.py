@@ -37,10 +37,11 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6",
-           "planes_extract", "tsdf_dense", "chunk_select")
+           "planes_extract", "tsdf_dense", "chunk_select", "marching_tets")
 # The kernels each path launches: the kernel path of kinfu_step
 # (use_pallas=True), its XLA path (use_pallas=False), and the dense path
-# (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas).
+# (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas). A
+# scan that writes its mesh adds K10 (marching_tets) to its path's.
 KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles",
                "chunk_select")
 XLA_PATH = ("bilateral", "solve6")
@@ -51,14 +52,21 @@ LAYOUT_PACKED = 0
 LAYOUT_F32 = 1
 LAYOUT_BF16 = 2
 
-launch_counts = {k: 0 for k in KERNELS}
-plain_counts = {k: 0 for k in KERNELS}
+# The kernels' launch counts and their plain versions' calls; a reload of
+# this module in place keeps both dicts (as utils.metrics keeps
+# GLOBAL_METRICS), so a caller that imported them still reads the counts.
+launch_counts = globals().get("launch_counts") or {}
+plain_counts = globals().get("plain_counts") or {}
+for _k in KERNELS:
+    launch_counts.setdefault(_k, 0)
+    plain_counts.setdefault(_k, 0)
 # Filled by load(): build seconds (0 when the library was already built)
 # and the ptxas register/spill report.
 build_info = {"seconds": 0.0, "ptxas": "", "path": ""}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
@@ -99,6 +107,12 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P],
     # h, w, chunks, superblocks, out: scratch bytes
     "hs_chunk_select_scratch": [_I, _I, _I, _I, _P],
+    # nx, ny, nz, slab, out: scratch bytes (int64)
+    "hs_marching_tets_scratch": [_I, _I, _I, _I, _P],
+    # vol, layout, nx, ny, nz, slab, min weight, scratch, total (int64), stream
+    "hs_marching_tets_count": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # vol, layout, nx, ny, nz, slab, params, scratch, cap, out, stream
+    "hs_marching_tets_emit": [_P, _I, _I, _I, _I, _I, _P, _P, _L, _P, _P],
 }
 # Each kernel's occupancy query (arg, out): the device kernels it reports,
 # in order, at the launch configuration of its wrapper.
@@ -112,6 +126,9 @@ OCCUPANCY = {
     "planes_extract": ("hs_planes_extract_occupancy", ("packed", "float32", "bfloat16")),
     "tsdf_dense": ("hs_tsdf_dense_occupancy", ("tsdf_dense_kernel",)),
     "chunk_select": ("hs_chunk_select_occupancy", ("hiz", "classify", "compact")),
+    "marching_tets": ("hs_marching_tets_occupancy",
+                      ("classify packed", "classify float32", "classify bfloat16", "scan",
+                       "emit packed", "emit float32", "emit bfloat16")),
 }
 for _fn, _ in OCCUPANCY.values():
     _SIGNATURES[_fn] = [_I, _P]

@@ -62,7 +62,11 @@ class _NoSpan:
         return False
 
 
-NO_SPAN = _NoSpan()
+# A reload of this module in place (``devloop.reload_framework``, which
+# the reference's reload also runs over this package) keeps the shared
+# objects, so modules that imported them by name before it and those that
+# import them after it hold the same ones.
+NO_SPAN = globals().get("NO_SPAN") or _NoSpan()
 
 
 class _Span:
@@ -190,7 +194,7 @@ class Metrics:
         return "\n".join(lines)
 
 
-GLOBAL_METRICS = Metrics()
+GLOBAL_METRICS = globals().get("GLOBAL_METRICS") or Metrics()  # kept by a reload, as NO_SPAN
 
 
 def tsdf_occupancy(volume) -> float:

@@ -28,7 +28,9 @@ a fully observed one and one with a single observed sub-block, at a
 non-cubic size, K8's chunk
 classes too (the fit sums in float64 and rounds once; K8's bilinear
 repeats its plain version's operation order), K8 at R = 128, 256 and 512,
-on SKIP and FREE columns and with a surface on a chunk boundary. At
+on SKIP and FREE columns and with a surface on a chunk boundary. K10 (the
+mesh) bit-identical to the plain marching tetrahedra on the card: the
+same vertex bytes, faces and count, on every layout, slab and cap. At
 room-vga-1024 (1024^3 over 6 m, float32: 2^31 cells), one 3-frame scan
 of the room-scan traffic through `portbench/drivers/scan.py` holds every
 number of its cell's comparison with the plain reference
@@ -55,6 +57,8 @@ from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.chunk_select import CLS_FREE as WL_FREE
 from housescan_tpu_torch.ops.chunk_select import CLS_REFINE, build_worklist
 from housescan_tpu_torch.kinfu.icp import DAMPINGS
+from housescan_tpu_torch.kinfu.marching_cubes import marching_cubes, marching_cubes_plain
+from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 from housescan_tpu_torch.ops.icp_cuda import (
     BAND_H,
     _plan,
@@ -869,6 +873,162 @@ def test_chunk_select_kernel_launches_once_a_step(cuda):
     k9 = {e.key.split("_kernel")[0].split("chunk_")[-1]: e.count for e in prof.key_averages()
           if "chunk_" in e.key and "_kernel" in e.key}
     assert k9 == {"hiz": 1, "classify": 1, "compact": 1}
+
+
+def _k10(vol, **kw):
+    """K10's mesh of the CUDA volume ``vol`` (its launch and plain counts
+    of the call checked: 1 and 0), and the plain version's on the card."""
+    cuda_lib.reset_counts()
+    got = marching_cubes(vol, **kw)
+    assert (cuda_lib.launch_counts["marching_tets"], cuda_lib.plain_counts["marching_tets"]) == (1, 0)
+    return got, marching_cubes_plain(vol, **kw)
+
+
+def _same_soup(got, want, min_triangles):
+    """The same vertex bytes, the same faces, the same count."""
+    assert got.vertices.dtype == np.float32 and got.vertices.shape == want.vertices.shape
+    assert got.vertices.tobytes() == want.vertices.tobytes()
+    np.testing.assert_array_equal(got.faces, want.faces)
+    assert len(got.faces) >= min_triangles
+
+
+def _k10_box(device):
+    """test_torch_tracing's 64^3 volume: the inside of a 0.6 m box over 1
+    m, every voxel observed."""
+    vol = tsdf_new(64, 1.0, 0.03, device=device)
+    c = (torch.arange(64, dtype=torch.float32, device=device) + 0.5) / 64 - 0.5
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    inside = 0.3 - torch.maximum(torch.maximum(x.abs(), y.abs()), z.abs())
+    vol.data[0] = torch.clamp(inside / 0.03, -1.0, 1.0)
+    vol.data[1] = 1.0
+    return vol
+
+
+def _k10_sphere(device, dims, slab_weights=False):
+    """A sphere of 0.9 m over a 3 m box of ``dims`` voxels (float32),
+    every voxel observed; with ``slab_weights`` the weights run 0-3 by x
+    and y (a quarter of the cells unobserved, a quarter at 1)."""
+    axes = [(torch.arange(n, dtype=torch.float32, device=device) + 0.5) * (3.0 / n) - 1.5
+            for n in dims]
+    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
+    t = torch.clamp((0.9 - torch.sqrt(gx * gx + gy * gy + gz * gz)) / 0.15, -1.0, 1.0)
+    w = torch.ones(dims, device=device)
+    if slab_weights:
+        ix = torch.arange(dims[0], device=device)[:, None, None]
+        iy = torch.arange(dims[1], device=device)[None, :, None]
+        w = ((ix // 5 + iy // 7) % 4).to(torch.float32).expand(dims).contiguous()
+    return TsdfVolume(torch.stack([t, w]), torch.full((3,), -1.5, device=device),
+                      torch.tensor(3.0 / dims[0], device=device), torch.tensor(0.15, device=device))
+
+
+def _k10_fused(cuda, dtype):
+    """A 128^3 volume over 3 m of ``dtype`` (float32, packed int32 or
+    bfloat16) with 4 orbit frames fused by the kernel path: partly
+    observed, weights 1-4."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 16, cuda)
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                    dtype=dtype, device=cuda)
+    st, _ = kinfu_run(st, frames, QQVGA)
+    return st.volume
+
+
+@pytest.mark.gpu
+def test_marching_tets_bit_identical_on_the_box(cuda):
+    got, want = _k10(_k10_box(cuda))
+    _same_soup(got, want, 1000)
+    # and the CPU call takes the plain version: the counts the other way round
+    cuda_lib.reset_counts()
+    cpu = marching_cubes(_k10_box("cpu"))
+    assert (cuda_lib.launch_counts["marching_tets"], cuda_lib.plain_counts["marching_tets"]) == (0, 1)
+    assert len(cpu.faces) == len(got.faces)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slab", [8, 16, 127])
+def test_marching_tets_bit_identical_on_a_fused_volume(cuda, slab):
+    vol = _k10_fused(cuda, torch.float32)
+    got, want = _k10(vol, slab=slab)
+    _same_soup(got, want, 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16], ids=["packed", "bf16"])
+@pytest.mark.parametrize("min_weight", [1.0, 2.0])
+def test_marching_tets_bit_identical_on_each_layout(cuda, dtype, min_weight):
+    """The packed int32 and bfloat16 layouts, read through the storage
+    templates, and the fused volume's unobserved and once-seen cells
+    under min_weight 1 and 2."""
+    got, want = _k10(_k10_fused(cuda, dtype), min_weight=min_weight)
+    _same_soup(got, want, 500)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,slab", [((48, 48, 48), 16), ((48, 40, 72), 16), ((70, 33, 97), 9)],
+                         ids=["48-clamped", "48x40x72", "70x33x97"])
+@pytest.mark.parametrize("slab_weights", [False, True], ids=["observed", "weights-0-3"])
+def test_marching_tets_bit_identical_at_odd_dims(cuda, dims, slab, slab_weights):
+    """Dims whose last slab is clamped (47 cells in slabs of 16 or 9 and
+    69 of 9), rows that do not fill a 32-cell word or an 8-row unit, and
+    weights 0-3 under min_weight 1 and 2 (weights all 1: none passes 2)."""
+    vol = _k10_sphere(cuda, dims, slab_weights)
+    for mw in (1.0, 2.0):
+        got, want = _k10(vol, slab=slab, min_weight=mw)
+        _same_soup(got, want, 50 if slab_weights else 300 if mw == 1.0 else 0)
+        if not slab_weights and mw == 2.0:
+            assert len(got.faces) == 0
+
+
+@pytest.mark.gpu
+def test_marching_tets_cap_keeps_the_first_triangles(cuda, capsys):
+    vol = _k10_box(cuda)
+    full, _ = _k10(vol)
+    n = len(full.faces)
+    assert capsys.readouterr().err == ""
+    cap = n // 3
+    got, want = _k10(vol, max_triangles=cap)
+    err = capsys.readouterr().err
+    line = f"marching_cubes: {n} triangles exceed capacity {cap}; mesh truncated (raise max_triangles)"
+    assert err.splitlines() == [line, line]  # K10's, then the plain version's
+    _same_soup(got, want, cap)
+    assert len(got.faces) == cap
+    assert got.vertices.tobytes() == full.vertices[: 3 * cap].tobytes()
+    got, _ = _k10(vol, max_triangles=n)
+    assert len(got.faces) == n and capsys.readouterr().err == ""
+
+
+@pytest.mark.gpu
+def test_marching_tets_empty_volumes(cuda):
+    """An unobserved volume and an observed one with no surface: no
+    triangles, one K10 call each."""
+    empty = tsdf_new(64, 1.0, 0.03, device=cuda)
+    got, want = _k10(empty)
+    assert len(got.faces) == len(want.faces) == 0 and got.vertices.shape == (0, 3)
+    free = _k10_box(cuda)
+    free.data[0] = 1.0
+    got, _ = _k10(free)
+    assert len(got.faces) == 0
+
+
+@pytest.mark.gpu
+def test_marching_tets_waits_on_the_card_for_the_count_and_the_copy(cuda):
+    """PyTorch's sync debug mode sees the host wait on the card twice in
+    a call: the triangle count (to size the output) and the copy of the
+    triangles to the host."""
+    import warnings
+
+    vol = _k10_box(cuda)
+    marching_cubes(vol)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            marching_cubes(vol)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [(Path(w.filename).name, w.lineno) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 2 and all(f == "marching_tets.py" for f, _ in syncs), syncs
 
 
 @pytest.mark.gpu

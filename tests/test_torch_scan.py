@@ -330,6 +330,21 @@ def test_mesh_matches_reference(meshes):
     assert len(np.unique(idx)) == len(tw)
 
 
+def test_mesh_matches_reference_on_bf16_volume(ref):
+    """The carried volume rounded to bfloat16 in both packages (the same
+    round-to-nearest-even): both widen each slab to float32 before the
+    tets, so the soups agree as ``test_mesh_matches_reference``'s do:
+    the same faces, vertices within 1e-5 m."""
+    fields = dict(ref["after2"])
+    jv, tv = _volumes(fields)
+    jv = jv._replace(data=jv.data.astype(jnp.bfloat16))
+    tv = tv._replace(data=tv.data.to(torch.bfloat16))
+    want, got = j_marching_cubes(jv), marching_cubes(tv)
+    assert len(want.faces) > 5000
+    np.testing.assert_array_equal(got.faces, want.faces)
+    np.testing.assert_allclose(got.vertices, want.vertices, atol=1e-5)
+
+
 def test_mesh_ply_round_trip(meshes, tmp_path):
     got = meshes[1]
     save_ply(tmp_path / "mesh.ply", got)
@@ -358,6 +373,32 @@ def test_mesh_slab_size_and_unobserved_volume():
     np.testing.assert_array_equal(canon(m8), canon(m16))
     unobserved = vol._replace(data=torch.from_numpy(ti << 16))
     assert len(marching_cubes(unobserved).faces) == 0
+
+
+def test_mesh_of_a_cpu_volume_runs_the_plain_version():
+    """A CPU volume takes the plain version (its counter, not K10's), and
+    K10's wrapper refuses a CPU tensor before any launch."""
+    from housescan_tpu_torch.kinfu.marching_cubes import marching_cubes_plain
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.ops.marching_tets import launch_marching_tets
+
+    res = 32
+    idx = (np.arange(res) + 0.5) * (2.0 / res) - 1.0
+    gx, gy, gz = np.meshgrid(idx, idx, idx, indexing="ij")
+    t = np.clip((0.6 - np.sqrt(gx * gx + gy * gy + gz * gz)) / 0.1, -1, 1).astype(np.float32)
+    vol = TsdfVolume(torch.stack([torch.from_numpy(t), torch.ones(res, res, res)]),
+                     torch.full((3,), -1.0), torch.tensor(2.0 / res), torch.tensor(0.1))
+    cuda_lib.reset_counts()
+    mesh = marching_cubes(vol)
+    assert cuda_lib.plain_counts["marching_tets"] == 1
+    assert cuda_lib.launch_counts["marching_tets"] == 0
+    plain = marching_cubes_plain(vol)
+    assert len(mesh.faces) > 300
+    np.testing.assert_array_equal(mesh.vertices, plain.vertices)
+    np.testing.assert_array_equal(mesh.faces, plain.faces)
+    with pytest.raises(ValueError):
+        launch_marching_tets(vol)
+    assert cuda_lib.launch_counts["marching_tets"] == 0
 
 
 # --- scan checkpoints -----------------------------------------------------

@@ -169,6 +169,51 @@ class TestDevloop:
             assert torch.equal(before.volume.data, after.volume.data)
         """)
 
+    @pytest.mark.parametrize("package", ["housescan_tpu_torch", "housescan_tpu"])
+    def test_tracing_and_counts_survive_reload(self, package):
+        """Either package's reload re-executes the port's modules in place
+        (the reference's prefix test matches this package's name too); the
+        metrics, the shared no-op span and the kernel counts stay the
+        objects that names imported before it hold, and the step records
+        into them after it."""
+        _run_reload_script(f"""
+            import importlib
+            import torch
+            from {package}.devloop import reload_framework
+            from housescan_tpu_torch.kinfu import kinfu_init, kinfu_step
+            from housescan_tpu_torch.kinfu.camera import Intrinsics
+            from housescan_tpu_torch.kinfu.synthetic import (
+                furnished_room, orbit_poses, render_depth_stream)
+            from housescan_tpu_torch.ops import cuda_lib
+            from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS, NO_SPAN, Metrics
+
+            counts = (cuda_lib.launch_counts, cuda_lib.plain_counts)
+            cuda_lib.plain_counts["chunk_select"] = 5
+            reload_framework()
+            metrics = importlib.import_module("housescan_tpu_torch.utils.metrics")
+            lib = importlib.import_module("housescan_tpu_torch.ops.cuda_lib")
+            assert metrics.Metrics is not Metrics  # re-executed ...
+            assert metrics.GLOBAL_METRICS is GLOBAL_METRICS and metrics.NO_SPAN is NO_SPAN
+            assert (lib.launch_counts, lib.plain_counts) == counts
+            assert lib.launch_counts is counts[0] and lib.plain_counts is counts[1]
+            assert lib.plain_counts["chunk_select"] == 5
+            assert GLOBAL_METRICS.span("step") is NO_SPAN
+
+            pipeline = importlib.import_module("housescan_tpu_torch.kinfu.pipeline")
+            intr = Intrinsics(160, 120, 131.25, 131.25, 79.5, 59.5)
+            half, boxes = furnished_room()
+            poses = orbit_poses(1, radius=0.25, yaw_range=0.1, pitch=0.25)
+            frames = render_depth_stream(intr, poses, half, boxes=boxes, device="cpu")
+            state = pipeline.kinfu_init(intr, resolution=128, size_m=3.0, trunc=0.06,
+                                        init_pose=poses[0], device="cpu")
+            GLOBAL_METRICS.enable()
+            pipeline.kinfu_step(state, frames[0], intr)
+            GLOBAL_METRICS.disable()
+            spans = [s.name for s in GLOBAL_METRICS.drain()["spans"]]
+            assert spans.count("step") == 1, spans
+            assert counts[1]["chunk_select"] == 6
+        """)
+
     def test_schema_change_refuses_restore(self, scene_with_room, monkeypatch):
         import housescan_tpu_torch.devloop.reload as rl
         from housescan_tpu_torch.devloop import get_state, store_state
