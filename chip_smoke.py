@@ -14,19 +14,26 @@ layouts (int16-packed int32, and the float32 (2, X, Y, Z) array, the
 reference's default), the XLA path (``use_pallas=False``) on a 480^3
 float32 volume over 3 m, a resolution that does not tile into 128-voxel
 chunks, and the dense path (K8 then ``raycast_pallas``) on a 512^3
-float32 volume. Phases, each fatal on failure:
+float32 volume. Phases, each fatal on failure (numbers 6 and 13 are
+not used, so that the others keep the numbers the project's records
+cite):
 
   1. a CUDA device must be present;
   2. print the card's name and power limit (nvidia-smi);
   3. build the kernel library from ``housescan_tpu_torch/csrc`` (one nvcc
      per source, in parallel) and print the build time and the ptxas
      register/spill lines;
-  4. box-512 (packed): run the fusion orbit once (warm), then compare each
-     kernel (K1 bilateral, K3 ICP level, K4 stream integrate, K5 free
-     carve, K6 plane raycast, K9 work-list prepass, K10 marching
-     tetrahedra on the warm volume, bit-identical) with its
-     plain PyTorch version on the card at the shapes the main path gives
-     it; K5 on a free list of at least
+  4. box-512 (packed): run the fusion orbit once from a fresh state and
+     gate it: the final pose error within the reference bench's 5 mm
+     budget, every frame tracked, the model maps finite and covering half
+     the image, every kernel of the path launched in it and no plain
+     version run, and one more step (on copies of the volume and planes)
+     making the host wait on the card nowhere (PyTorch's sync debug
+     mode); then compare each kernel (K1 bilateral, K3 ICP level, K4
+     stream integrate, K5 free carve, K6 plane raycast, K9 work-list
+     prepass, K10 marching tetrahedra on the warm volume, bit-identical)
+     with its plain PyTorch version on the card at the shapes the main
+     path gives it; K5 on a free list of at least
      16 superblocks (the state after frame 20, else after frame 0), then
      timed on that list with its count set to 0 (an empty list, which
      must change nothing); K6 bit-identical on all 9 rows at 640x480 and,
@@ -41,35 +48,25 @@ float32 volume. Phases, each fatal on failure:
      the volume's observed voxels, as in phase 11);
   5. integrate the orbit at its poses with and without the free split:
      the volumes and planes must be bit-identical;
-  6. run the fusion orbit again from a fresh state, timed on the host
-     clock (frames 1..20 after frame 0, ending in a synchronize), gate the
-     final pose error at the reference bench's 5 mm budget, and require
-     every kernel of the path to have launched in it and no plain version
-     to have run; one more step must make the host wait on the card
-     nowhere (PyTorch's sync debug mode);
-  7. box-512-f32: phases 4-6 on the float32 volume: a warm pass, K4 and K5
-     against their plain versions on the float layout, split against
-     unsplit bit-identical, K7 as the oracle of K4's persistent planes
-     (a fresh extraction after a step equals them on every listed chunk:
-     valid flags identical, fields but 11 within 1e-5 where valid), K4 and
-     K5 on the empty list, then the timed pass with phase 6's gates;
+  7. box-512-f32: phases 4-5 on the float32 volume: the orbit with phase
+     4's gates, K4 and K5 against their plain versions on the float
+     layout, split against unsplit bit-identical, K7 as the oracle of K4's
+     persistent planes (a fresh extraction after a step equals them on
+     every listed chunk: valid flags identical, fields but 11 within 1e-5
+     where valid), K4 and K5 on the empty list;
   8. the scan at full width: record the 21 frames, load them, and run
      ``scan_to_room_dir(config=Config(), write_mesh=True)`` (the kernel
      path, fusing into float32) into ``build/chip_smoke/scan_room``; the
      kernel launch counts of this run must show every kernel of the kernel
      path and no plain version; gate on no dropped frame, every
      reference-layout file present and parsing, >= 2 planes and a
-     non-empty mesh inside the volume; print the pose error and the host
-     time of each phase (fusion, surface points, RANSAC, marching
-     tetrahedra, writes); K10 against its plain version on the card on
-     the float32 volume the scan meshed (the main path's layout and shape:
-     bit-identical, one K10 call and no plain one, timed as phase 4 times
-     it); then RANSAC once more on the same cloud, split into the
-     detection on the card and the host's hulls;
-  9. xla-480: the orbit on the XLA path, a warm pass over frames 0-2,
-     then a timed pass with launch counts: pose error <= 5 mm, 20/20
-     tracked, model-map coverage >= 0.5, K1 and K2 launched, K3-K8 not, no
-     plain version; print ms/frame, fps and peak memory; then K2 (the
+     non-empty mesh inside the volume; print the pose error; K10 against
+     its plain version on the card on the float32 volume the scan meshed
+     (the main path's layout and shape: bit-identical, one K10 call and no
+     plain one, timed as phase 4 times it);
+  9. xla-480: the orbit on the XLA path with launch counts: pose error <=
+     5 mm, 20/20 tracked, model-map coverage >= 0.5, K1 and K2 launched,
+     K3-K8 not, no plain version; print the peak memory; then K2 (the
      standalone solve) against its plain version on the card on the
      (A, b, pose) of real iterations of that orbit's last frame and on
      degenerate systems (bit-identical), its device time a call beside an
@@ -107,13 +104,6 @@ float32 volume. Phases, each fatal on failure:
      K1's device time and an estimate of its instruction-issue floor
      (its static SASS count for each warp at 4 a clock an SM, cuobjdump); each
      kernel's resident blocks an SM (the occupancy calculator);
- 13. profile three fusion steps of the kernel path (both layouts) and one
-     of the XLA path: device kernel time per step against the timed pass's frame
-     time (the device's busy share) and beside the readings before K5's
-     and K6's redesign, the launches per step, each stage's device and
-     host time a step, the top kernels, and the full tables in
-     ``build/chip_smoke/profile.txt``, ``profile_f32.txt`` and
-     ``profile_xla.txt``;
  14. curved-512 and noisy-512: the bench orbit on the kernel path at
      box-512's setup in the curved world (spheres, a capped cylinder,
      yaw-rotated boxes), and in the box world with 2 mm depth noise
@@ -121,28 +111,26 @@ float32 volume. Phases, each fatal on failure:
      packed volume with the counts set to 0: every kernel of the path
      launched, no plain version, no frame dropped, the pose error within
      bench.py's budget (12.5 and 11.0 mm), no host synchronisation in one
-     more step; its fps, device time a step, and K1, K3, K4, K5 and K6
-     against their plain versions on its last frame with phase 4's
-     bounds;
+     more step; K1, K3, K4, K5 and K6 against their plain versions on its
+     last frame with phase 4's bounds;
  15. rooms: two rooms scanned by ``scan_to_room_dir`` at ``Config()``
      (512^3 float32, 640x480, 32 known poses each, as
      tests/test_end_to_end.py sweeps them) into ``build/chip_smoke/rooms``,
      then the room stage with every scene on the card: load, corners,
      cuboid fit, a room moved, walls connected, positions optimised,
      .xf files and placed full-resolution clouds, with that test's
-     assertions and the host seconds of each phase; then the same on the
-     CPU from the same directories, the card held to it (corners 1e-4 m,
-     rmse 1e-5, positions 1e-4 m, .xf 1e-5);
+     assertions; then the same on the CPU from the same directories, the
+     card held to it (corners 1e-4 m, rmse 1e-5, positions 1e-4 m, .xf
+     1e-5);
  16. box-512-bf16: the kernel path on a fresh (2, 512, 512, 512) bfloat16
-     volume: a warm pass, K4 and K5 against their plain versions
-     (bit-identical) and on the empty list, K7 as the oracle of K4's
+     volume: the orbit with phase 4's gates, K4 and K5 against their plain
+     versions (bit-identical) and on the empty list, K7 as the oracle of K4's
      planes and against its plain version (bit-identical, its bound from
      the data: 2 bytes a weight and an observed tsdf), split against
      unsplit bit-identical, the full-width twin of the reference's
      test_bf16_parity_with_f32 (frame 0 against a float32 volume: weights
-     identical, |dt| < 5e-4 where |t| < 0.1, < 4.5e-3 wherever observed),
-     then the timed pass with phase 6's gates; K4, K5 and K7 timed beside
-     their float32 times of phase 12;
+     identical, |dt| < 5e-4 where |t| < 0.1, < 4.5e-3 wherever observed);
+     K4, K5 and K7 timed beside their float32 times of phase 12;
  17. sharded-512: ``make_sharded_step(use_pallas=True)`` on
      ``make_mesh(4, devices=[cuda:0] * 4)``, a packed 512^3 volume as 4
      X-slabs of 128 x 512 x 512: frames 0-2 teacher-forced from the
@@ -151,8 +139,7 @@ float32 volume. Phases, each fatal on failure:
      then the orbit free from a fresh state (pose error <= 5 mm and within
      2 mm of box-512's final position; K1 and K3 launched, K4, K5 and K6
      four times a step, no plain version, no host synchronisation in one
-     more step), its ms/frame and one profiled step's device time and
-     launches beside box-512's; then the XLA path on 4 slabs at 480^3:
+     more step); then the XLA path on 4 slabs at 480^3:
      frame 0's integrate bit-identical to the single-device one, frames 1
      and 2 tracked (pose within 2.5 mm, half a frame's motion);
  18. building: ``scan_building`` at ``Config()`` over two rooms (phase
@@ -161,26 +148,25 @@ float32 volume. Phases, each fatal on failure:
      ``build/chip_smoke/building_<route>``, with tests/test_building.py's
      end-to-end assertions; both routes finish the same rooms with the
      same wall connections and place them within 2 mm (``run_building``
-     derives the bound); the host seconds of each phase;
+     derives the bound);
  19. cli: the command line (``housescan_tpu_torch.cli.main``) in this
-     process, every command's host seconds printed, its outputs in
+     process, every command's last output lines printed, its outputs in
      ``build/chip_smoke/cli``: the bench orbit recorded as uint16 mm;
      ``scan --mesh --checkpoint-every 10`` at ``Config()`` (512^3, from
      the identity pose, as the command line starts): K1 and K3-K6
      launched and no plain version, the trajectory equal to
      ``scan_to_room_dir``'s with the same arguments (``run_cli`` says why
-     not the 5 mm budget), the room directory loading, the
-     scan-checkpoint writes timed, then ``--resume`` reproducing the
-     trajectory; ``scan --live`` over ``HOUSESCAN_FAKE_DEVICE`` = the
+     not the 5 mm budget), the room directory loading, then ``--resume``
+     reproducing the trajectory; ``scan --live`` over ``HOUSESCAN_FAKE_DEVICE`` = the
      recording, unpaced and paced (``--realtime``): the source opened,
      every frame read fused (the frames matched to the recording) and the
      trajectory equal to ``scan_to_room_dir``'s on the frames read; the
      room stage on the scanned room and
      phase 15's two rooms (``add-room``, ``suggest``, ``accept-corner``
      where needed, ``fit-cuboid``, ``auto-align``, ``move``, ``connect``,
-     ``optimize``, ``export --full-res``, ``render``, ``info``), the
-     scene-checkpoint writes timed, the scene round-tripping, the .xf
-     files parsing, the image not empty; ``detect-planes``;
+     ``optimize``, ``export --full-res``, ``render``, ``info``), the scene
+     round-tripping, the .xf files parsing, the image not empty;
+     ``detect-planes``;
      ``scan-building --sharded --known-poses`` over phase 18's rooms on
      the visible cards; ``refuse --devices 2x2`` with ``--device
      cuda:0``; two steps under ``utils.metrics.device_trace`` (the trace
@@ -204,25 +190,23 @@ comparisons and empty lists, phase 12's times of the main path's kernels
 (K1, K3-K6) and of K7 on box-512's packed volume, with K1's device time
 and estimated issue floor, K8 on dense-512's compare input and K7 on the
 orbit fused by K8 (phase 11's comparisons and readings, the render's
-time, phase 12's times), every kernel's resident blocks an SM, phase 13's profile of the
-kernel path on both layouts, then K2 on the systems of box-512's warm
-state (phase 9's comparison and readings, timed), and prints no result
-line. It calls nothing that the package of the commit before K7's and
-K2's redesign lacks, so copied into a checkout of that commit it reads
-the same calls there: the before and after of a redesign, in turns
-within one run on the card.
+time, phase 12's times), every kernel's resident blocks an SM, then K2
+on the systems of box-512's warm state (phase 9's comparison and
+readings, timed), and prints no result
+line. Copied into a checkout of an earlier commit whose package has
+every kernel it calls (K1-K10), it reads the same calls there: the
+before and after of a redesign, in turns within one run on the card.
 
 Numbers are printed beside the card's name and power limit. The line
 before the last is the kernels' JSON record (launches: each kernel's
-path's run: the scan's for the kernel path, the timed xla-480 pass for
-K2, the dense-512 run for K7 and K8; ``launches_sharded``: the free
+path's run: the scan's for the kernel path, the xla-480 orbit for K2,
+the dense-512 run for K7 and K8; ``launches_sharded``: the free
 sharded-512 run's; ``launches_cli``: phase 19's; the rows ``...@bf16``:
-K4 and K5 on box-512-bf16's timed pass, K7 in its oracle run); the last
+K4 and K5 on box-512-bf16's orbit, K7 in its oracle run); the last
 line is ``{"ok": true,
 "device": {...}}``.
 """
 
-import bisect
 import json
 import os
 import shutil
@@ -329,22 +313,18 @@ def workload(device):
 
 
 def run_orbit(intr, poses, frames, res, device, dtype=torch.int32, use_pallas=True):
-    """Fresh state, frame 0, then frames 1..N; returns (state, seconds
-    for frames 1..N on the host clock, per-frame tracked flags)."""
+    """Fresh state, frame 0, then frames 1..N; returns (state, per-frame
+    tracked flags of frames 1..N)."""
     from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
 
     st = kinfu_init(intr, resolution=res, size_m=3.0, trunc=0.03, init_pose=poses[0], dtype=dtype,
                     device=device)
     st = kinfu_step(st, frames[0], intr, use_pallas=use_pallas)
-    torch.cuda.synchronize()
     tracked = []
-    t0 = time.perf_counter()
     for i in range(1, len(frames)):
         st = kinfu_step(st, frames[i], intr, use_pallas=use_pallas)
         tracked.append(st.last_tracked)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return st, seconds, [bool(t) for t in tracked]
+    return st, [bool(t) for t in tracked]
 
 
 def free_inputs(vol, planes, depth, pose, intr):
@@ -549,7 +529,7 @@ def mesh_probe(intr, poses, frames, device, card):
 
     calls, bounds = {}, {}
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
-        st, _, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+        st, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
         name = f"marching_tets@box-{RES}{TAGS[dtype]}"
         _, calls[name], bounds[name] = compare_mesh(st.volume, f"box-{RES} {LAYOUTS[dtype]}", card)
         REPS[name] = REPS["marching_tets"]
@@ -955,7 +935,6 @@ def run_scan(intr, poses, frames, card, res=RES):
     cfg = Config()
     cfg = replace(cfg, tsdf=replace(cfg.tsdf, resolution=res))
     kernel_path = pallas_supported(res)
-    timings = {}
     # the layout the scan fuses into, read from the state it creates
     init, layouts = scan.kinfu_init, []
 
@@ -973,13 +952,10 @@ def run_scan(intr, poses, frames, card, res=RES):
 
     scan.kinfu_init, scan.marching_cubes = recording_init, recording_mesh
     cuda_lib.reset_counts()
-    t0 = time.perf_counter()
     try:
-        scan.scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True,
-                              timings=timings)
+        scan.scan_to_room_dir(stream, room, config=cfg, init_pose=poses[0], write_mesh=True)
     finally:
         scan.kinfu_init, scan.marching_cubes = init, mesh_fn
-    total = time.perf_counter() - t0
     if layouts != [(torch.float32, (2, res, res, res))]:
         fail(f"the scan at {res}^3 fused into {layouts}, not the float32 volume")
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
@@ -1015,146 +991,10 @@ def run_scan(intr, poses, frames, card, res=RES):
     print(f"# scan {res}^3 {intr.width}x{intr.height} Config() ({tag}): {N_FRAMES + 1} frames, 0 dropped, "
           f"pose error {err_mm:.3f} mm (scalar 0.10 m ICP gate), {len(full)} surface points, "
           f"{n_planes} planes, {len(mesh.faces)} triangles [{card}]", flush=True)
-    phases = " ".join(f"{k} {timings[k]:.4f} s" for k in
-                      ("fusion", "surface_points", "ransac", "mesh", "writes"))
-    print(f"# scan phases (host clock, each ending in a synchronize): {phases}; "
-          f"total {total:.4f} s; fusion {timings['fusion'] / (N_FRAMES + 1) * 1000:.3f} ms/frame "
-          f"[{card}]", flush=True)
     if len(meshed) != 1:
         fail(f"the scan at {res}^3 meshed {len(meshed)} volumes, not 1")
     compare_mesh(meshed.pop(), f"scan {res}^3 float32", card)
-    if not kernel_path:
-        return launches
-
-    # the RANSAC phase again on the same cloud, split into the detection
-    # on the card (now warm) and the host's hulls
-    from housescan_tpu_torch.kinfu.ransac import detect_planes, plane_hulls
-
-    rc = cfg.ransac
-    cloud = torch.from_numpy(down.points).to("cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    det = detect_planes(cloud, max_planes=rc.max_planes, n_hypotheses=rc.n_hypotheses,
-                        inlier_threshold=rc.inlier_threshold,
-                        min_inliers=max(int(rc.min_inlier_fraction * len(down)), 50))
-    n_det = int(det.n_planes)
-    t_det = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plane_hulls(down.points, det)
-    t_hull = time.perf_counter() - t0
-    print(f"# ransac again: detect_planes {t_det:.4f} s ({n_det} planes, warm), "
-          f"plane_hulls {t_hull:.4f} s (host) [{card}]", flush=True)
     return launches
-
-
-# The step's stages, as kinfu/pipeline.py calls them: each is wrapped in a
-# profiler range while the profile runs, so the device time its kernels
-# take and the host time it spends are read per stage.
-STAGES = ("build_pyramid", "icp_track", "_integrate_dispatch", "raycast", "raycast_planes")
-
-
-def profile_steps(intr, poses, frames, res, device, out_path, n=3, dtype=torch.int32,
-                  use_pallas=True):
-    """Device kernel time per step over ``n`` steps of a fresh orbit, the
-    launches, the top kernels and each stage's (device ms, host ms) a
-    step; the full table goes to ``out_path``."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from housescan_tpu_torch.kinfu import pipeline
-    from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
-
-    st = kinfu_init(intr, resolution=res, size_m=3.0, trunc=0.03, init_pose=poses[0], dtype=dtype,
-                    device=device)
-    for i in range(3):
-        st = kinfu_step(st, frames[i], intr, use_pallas=use_pallas)
-    torch.cuda.synchronize()
-
-    def ranged(name, fn):
-        def wrapper(*args, **kwargs):
-            with record_function(f"stage:{name}"):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    originals = {name: getattr(pipeline, name) for name in STAGES}
-    try:
-        for name, fn in originals.items():
-            setattr(pipeline, name, ranged(name, fn))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(3, 3 + n):
-                st = kinfu_step(st, frames[i], intr, use_pallas=use_pallas)
-            torch.cuda.synchronize()
-    finally:
-        for name, fn in originals.items():
-            setattr(pipeline, name, fn)
-    avgs = prof.key_averages()
-    # named self_device_time_total in newer PyTorch, self_cuda_time_total before
-    attr = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") else "self_cuda_time_total"
-    cuda = torch.autograd.DeviceType.CUDA
-    # the stage ranges also appear on the device timeline: not kernels
-    kernels = [e for e in avgs if e.device_type == cuda and not e.key.startswith("stage:")]
-    dev_ms = sum(getattr(e, attr) for e in kernels) / 1000.0 / n
-    launches = sum(e.count for e in kernels) / n
-    # a stage's device time: the kernels that start on the device timeline
-    # between its range's start there and the next stage's (the profiler
-    # attributes to a range only the kernels of PyTorch operators, not
-    # those launched through ctypes; glue kernels after a stage count with
-    # it); its host time: the range's wall time
-    evs = [e for e in prof.events() if e.device_type == cuda]
-    marks = sorted((e.time_range.start, e.key[len("stage:"):]) for e in evs
-                   if e.key.startswith("stage:"))
-    starts = [m[0] for m in marks]
-    dev_us = {name: 0.0 for _, name in marks}
-    for e in evs:
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if not e.key.startswith("stage:") and i >= 0:
-            dev_us[marks[i][1]] += getattr(e, attr)
-    stages = {e.key[len("stage:"):]: (dev_us.get(e.key[len("stage:"):], 0.0) / 1000.0 / n,
-                                      e.cpu_time_total / 1000.0 / n)
-              for e in avgs if e.key.startswith("stage:") and e.device_type != cuda}
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    with open(out_path, "w") as f:
-        f.write(avgs.table(sort_by=attr, row_limit=60))
-    top = sorted(kernels, key=lambda e: -getattr(e, attr))[:10]
-    k2 = [e for e in kernels if "solve6_kernel" in e.key]
-    k2_us = getattr(k2[0], attr) / k2[0].count if k2 else None
-    return dev_ms, launches, [(e.key, getattr(e, attr) / 1000.0 / n, e.count / n) for e in top], \
-        stages, k2_us
-
-
-# Phase 13's profiles: (cell, profile_steps keywords, table file, the
-# device ms and launches a step before K5's and K6's redesign, NVIDIA H100
-# 80GB HBM3, 700.00 W).
-PROFILES = (
-    (f"box-{RES}", dict(res=RES), "profile.txt", (4.718, 2494)),
-    (f"box-{RES}-f32", dict(res=RES, dtype=torch.float32), "profile_f32.txt", (4.795, 2494)),
-    (f"xla-{XLA_RES}", dict(res=XLA_RES, dtype=torch.float32, use_pallas=False, n=1),
-     "profile_xla.txt", (85.239, 16896)),
-)
-
-
-def report_profile(tag, intr, poses, frames, device, card, secs, kw, name, before):
-    """Print profile_steps' reading of cell ``tag``: device time and
-    launches a step beside ``before``, the device's busy share against the
-    timed pass's ``secs`` (where given), each stage and the top kernels."""
-    dev_ms, n_launch, top, stages, k2_us = profile_steps(intr, poses, frames, device=device,
-                                                         out_path=os.path.join(OUT, name), **kw)
-    busy = ""
-    if secs is not None:
-        frame_ms = secs / N_FRAMES * 1000.0
-        busy = f"; timed pass {frame_ms:.3f} ms/frame -> device busy {dev_ms / frame_ms * 100:.1f}%"
-    print(f"# profile {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
-          f"launches/step (before the redesign: {before[0]} ms in {before[1]}){busy} [{card}]",
-          flush=True)
-    for stage, (d_ms, h_ms) in stages.items():
-        print(f"# profile {tag}: stage {stage}: device {d_ms:.3f} ms/step, host {h_ms:.3f} "
-              f"ms/step", flush=True)
-    if k2_us is not None:
-        print(f"# profile {tag}: K2 solve6_kernel device time {k2_us:.2f} us a launch "
-              f"[{card}]", flush=True)
-    for key, ms, n in top:
-        print(f"# profile {tag}: {ms:8.4f} ms/step {n:6.1f}x/step {key[:90]}", flush=True)
-    torch.cuda.empty_cache()
-    return dev_ms, n_launch
 
 
 def host_syncs(fn):
@@ -1249,29 +1089,23 @@ def k2_readings(calls, card, reps=200):
 
 
 def run_xla(intr, poses, frames, device, card):
-    """Phase 9, xla-480: a warm pass over frames 0-2, the timed pass with
-    launch counts and its gates, then K2 against its plain version on
-    systems of the timed pass's last frame, and one more step that must
-    not make the host wait on the card."""
+    """Phase 9, xla-480: the orbit with launch counts and its gates, then
+    K2 against its plain version on systems of the orbit's last frame, and
+    one more step that must not make the host wait on the card."""
     from housescan_tpu_torch.kinfu.pipeline import kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
-    st, warm_s, _ = run_orbit(intr, poses[:3], frames[:3], XLA_RES, device, dtype=torch.float32,
-                              use_pallas=False)
-    del st
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_counts()
-    st, secs, tracked = run_orbit(intr, poses, frames, XLA_RES, device, dtype=torch.float32,
-                                  use_pallas=False)
+    st, tracked = run_orbit(intr, poses, frames, XLA_RES, device, dtype=torch.float32,
+                            use_pallas=False)
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1000.0
     cover = float(st.model_maps[7].mean())
-    print(f"# xla-{XLA_RES} {intr.width}x{intr.height} float32 (use_pallas=False): {N_FRAMES} frames "
-          f"in {secs:.4f} s = {secs / N_FRAMES * 1000:.3f} ms/frame = {N_FRAMES / secs:.2f} fps "
-          f"(warm pass of 3 frames {warm_s:.4f} s); pose error {err_mm:.3f} mm; last rmse "
-          f"{float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; tracked "
+    print(f"# xla-{XLA_RES} {intr.width}x{intr.height} float32 (use_pallas=False): {N_FRAMES} "
+          f"frames; pose error {err_mm:.3f} mm; last rmse {float(st.last_rmse) * 1000:.4f} mm "
+          f"corr {int(st.last_corr)}; tracked "
           f"{sum(tracked)}/{len(tracked)}; model-map coverage {cover:.3f}; peak memory "
           f"{peak_gb:.3f} GB; K2 launches {launches['solve6']} [{card}]", flush=True)
     print(f"# xla-{XLA_RES} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
@@ -1287,54 +1121,14 @@ def run_xla(intr, poses, frames, device, card):
 
     systems = k2_systems(st, frames[N_FRAMES], intr)
     err, calls, k2_bound = compare_k2(systems)
-    print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from the timed xla-{XLA_RES} "
-          f"pass's last frame, 3 degenerate), bit-identical", flush=True)
+    print(f"# K2 compare: {len(systems)} systems ({len(systems) - 3} from the xla-{XLA_RES} "
+          f"orbit's last frame, 3 degenerate), bit-identical", flush=True)
     k2_readings(calls, card)
     _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr, use_pallas=False))
     print(f"# xla-{XLA_RES}: one more step made {len(syncs)} host synchronisations", flush=True)
     if syncs:
         fail(f"the XLA step made the host wait on the card at {syncs}")
-    return dict(err=err, calls=calls, bound=k2_bound, launches=launches, secs=secs)
-
-
-def timed_orbit(intr, poses, frames, device, card, dtype, warm_s):
-    """The timed kernel-path pass of phases 6 and 7 on a fresh volume of
-    ``dtype``, with its gates and launch counts; then one more step, which
-    must not make the host wait on the card. Returns (state, seconds,
-    the pass's launches)."""
-    from housescan_tpu_torch.kinfu.pipeline import kinfu_step
-    from housescan_tpu_torch.ops import cuda_lib
-
-    tag = f"box-{RES}" + TAGS[dtype]
-    cuda_lib.reset_counts()
-    st, secs, tracked = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
-    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
-    err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1000.0
-    maps = st.model_maps
-    cover = float(maps[7].mean())
-    print(f"# {tag} {intr.width}x{intr.height} ({LAYOUTS[dtype]} volume "
-          f"{tuple(st.volume.data.shape)}): {N_FRAMES} frames in {secs:.4f} s = "
-          f"{secs / N_FRAMES * 1000:.3f} ms/frame = "
-          f"{N_FRAMES / secs:.2f} fps (warm pass {warm_s:.4f} s); pose error {err_mm:.3f} mm; "
-          f"last rmse {float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; "
-          f"tracked {sum(tracked)}/{len(tracked)}; coverage {cover:.3f} [{card}]", flush=True)
-    print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
-    if st.volume.data.dtype != dtype:
-        fail(f"{tag} did not fuse into the {LAYOUTS[dtype]} volume")
-    if err_mm > POSE_BUDGET_MM:
-        fail(f"{tag} pose error {err_mm:.3f} mm exceeds {POSE_BUDGET_MM} mm")
-    if not all(tracked):
-        fail(f"a frame of the {tag} orbit was dropped")
-    if tuple(maps.shape) != (8, intr.height, intr.width) or not bool(torch.isfinite(maps).all()):
-        fail(f"{tag} model maps malformed")
-    if cover < 0.5:
-        fail(f"{tag} model maps cover only {cover:.3f} of the image")
-    check_counts(tag, launches, plain, cuda_lib.KERNEL_PATH)
-    _, syncs = host_syncs(lambda: kinfu_step(st, frames[N_FRAMES], intr))
-    print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
-    if syncs:
-        fail(f"the {tag} step made the host wait on the card at {syncs}")
-    return st, secs, launches
+    return dict(err=err, calls=calls, bound=k2_bound, launches=launches)
 
 
 def k7_oracle(st, depth, intr):
@@ -1555,19 +1349,13 @@ def run_dense(intr, poses, frames, device, card):
 
     # the path: K8 over the 21 frames at their true poses, then model maps
     cuda_lib.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     vol = fresh()
     for d, p in zip(frames, pose_t):
         vol, _ = tsdf_integrate_with_planes(vol, d, p, intr)
-    torch.cuda.synchronize()
-    fuse_s = time.perf_counter() - t0
     maps = {k: raycast_pallas(vol, pose_t[k], intr) for k in (N_FRAMES, 0)}
     torch.cuda.synchronize()
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
-    print(f"# {tag}: {N_FRAMES + 1} frames fused by K8 in {fuse_s:.4f} s = "
-          f"{fuse_s / (N_FRAMES + 1) * 1000:.3f} ms/frame (host clock, first call included) "
-          f"[{card}]", flush=True)
+    print(f"# {tag}: {N_FRAMES + 1} frames fused by K8 [{card}]", flush=True)
     print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
     check_counts(tag, launches, plain, cuda_lib.DENSE_PATH)
     for k, m in maps.items():
@@ -1633,24 +1421,59 @@ REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
         "chunk_select": (50, 3), "marching_tets": (10, 1)}
 
 
-def warm_states(intr, poses, frames, device, dtype):
-    """(the state after a warm orbit on a fresh ``dtype`` volume, the state
-    after frame 0 alone, the warm pass's seconds)."""
+def warm_states(intr, poses, frames, device, dtype, card):
+    """(the state after the orbit on a fresh ``dtype`` volume, the state
+    after frame 0 alone, the orbit's launches). The orbit's gates: the
+    volume's layout, the final pose error within POSE_BUDGET_MM, every
+    frame tracked, the model maps' shape, finiteness and coverage, every
+    kernel of the path launched and no plain version run, and one more
+    step (on copies of the volume and planes, which the comparisons
+    read next) that must not make the host wait on the card."""
     from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
+    from housescan_tpu_torch.ops import cuda_lib
 
-    st, warm_s, _ = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+    tag = f"box-{RES}" + TAGS[dtype]
+    cuda_lib.reset_counts()
+    st, tracked = run_orbit(intr, poses, frames, RES, device, dtype=dtype)
+    launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
+    err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1000.0
+    maps = st.model_maps
+    cover = float(maps[7].mean())
+    print(f"# {tag} {intr.width}x{intr.height} ({LAYOUTS[dtype]} volume "
+          f"{tuple(st.volume.data.shape)}): {N_FRAMES} frames; pose error {err_mm:.3f} mm; "
+          f"last rmse {float(st.last_rmse) * 1000:.4f} mm corr {int(st.last_corr)}; "
+          f"tracked {sum(tracked)}/{len(tracked)}; coverage {cover:.3f} [{card}]", flush=True)
+    print(f"# {tag} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
+    if st.volume.data.dtype != dtype:
+        fail(f"{tag} did not fuse into the {LAYOUTS[dtype]} volume")
+    if err_mm > POSE_BUDGET_MM:
+        fail(f"{tag} pose error {err_mm:.3f} mm exceeds {POSE_BUDGET_MM} mm")
+    if not all(tracked):
+        fail(f"a frame of the {tag} orbit was dropped")
+    if tuple(maps.shape) != (8, intr.height, intr.width) or not bool(torch.isfinite(maps).all()):
+        fail(f"{tag} model maps malformed")
+    if cover < 0.5:
+        fail(f"{tag} model maps cover only {cover:.3f} of the image")
+    check_counts(tag, launches, plain, cuda_lib.KERNEL_PATH)
+    copy = st._replace(volume=st.volume._replace(data=st.volume.data.clone()),
+                       planes=st.planes.clone())
+    _, syncs = host_syncs(lambda: kinfu_step(copy, frames[N_FRAMES], intr))
+    del copy
+    print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
+    if syncs:
+        fail(f"the {tag} step made the host wait on the card at {syncs}")
     st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
                      dtype=dtype, device=device)
-    return st, kinfu_step(st0, frames[0], intr), warm_s
+    return st, kinfu_step(st0, frames[0], intr), launches
 
 
 def box_kernels(intr, poses, frames, device, card):
-    """Phase 4 on the packed volume: each main-path kernel against its
-    plain version, K7 on the warm state's volume, K3's level calls and K4
-    on an empty list. Returns (errors, timing calls, bounds, list sizes,
-    warm pass seconds, the warm state)."""
+    """Phase 4 on the packed volume: the gated orbit (``warm_states``),
+    then each main-path kernel against its plain version, K7 on the warm
+    state's volume, K3's level calls and K4 on an empty list. Returns
+    (errors, timing calls, bounds, list sizes, the warm state)."""
     pose1 = torch.from_numpy(poses[1]).to(device)
-    st, st0, warm_s = warm_states(intr, poses, frames, device, torch.int32)
+    st, st0, _ = warm_states(intr, poses, frames, device, torch.int32, card)
     errs, calls, bounds, sizes = compare_kernels(st, st0, intr, frames[N_FRAMES], frames[1], pose1,
                                                  card)
     errs[PACKED_K7], calls[PACKED_K7], bounds[PACKED_K7] = compare_extract(
@@ -1658,20 +1481,21 @@ def box_kernels(intr, poses, frames, device, card):
     print(f"# compare: max abs err {json.dumps(errs)}", flush=True)
     icp_levels(st, frames[N_FRAMES], intr, card)
     stream_empty_list(st, frames[N_FRAMES], intr, card)
-    return errs, calls, bounds, sizes, warm_s, st
+    return errs, calls, bounds, sizes, st
 
 
 def f32_kernels(intr, poses, frames, device, card):
-    """Phase 7's kernels on the float32 volume: K4 and K5 against their
-    plain versions, K4 on an empty list. Returns ({kernel: its compare_*
-    result}, the warm state, warm pass seconds)."""
+    """Phase 7's kernels on the float32 volume: the gated orbit
+    (``warm_states``), K4 and K5 against their plain versions, K4 on an
+    empty list. Returns ({kernel: its compare_* result}, the warm
+    state)."""
     pose1 = torch.from_numpy(poses[1]).to(device)
-    st, st0, warm_f = warm_states(intr, poses, frames, device, torch.float32)
+    st, st0, _ = warm_states(intr, poses, frames, device, torch.float32, card)
     f32 = {"tsdf_stream": compare_stream(st, frames[N_FRAMES], intr),
            "tsdf_free": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr,
                                          card)}
     stream_empty_list(st, frames[N_FRAMES], intr, card)
-    return f32, st, warm_f
+    return f32, st
 
 
 def time_kernels(names, calls, bounds, card, launches=None):
@@ -1711,10 +1535,10 @@ def probe(intr, poses, frames, device, card):
     main path's kernels on both layouts (K1's device time and estimated issue floor
     too), K8 on dense-512's compare input (bit-identical, chunk classes,
     device time by launch, bandwidth) and K7 on the orbit fused by K8,
-    both then timed as in phase 12, every kernel's resident blocks an SM,
-    and phase 13's device time a step on both layouts."""
-    errs, calls, bounds, _, _, st_box = box_kernels(intr, poses, frames, device, card)
-    f32, st, _ = f32_kernels(intr, poses, frames, device, card)
+    both then timed as in phase 12, and every kernel's resident blocks an
+    SM."""
+    errs, calls, bounds, _, st_box = box_kernels(intr, poses, frames, device, card)
+    f32, st = f32_kernels(intr, poses, frames, device, card)
     del st
     torch.cuda.empty_cache()
     time_kernels(list(calls), calls, bounds, card)
@@ -1728,24 +1552,15 @@ def probe(intr, poses, frames, device, card):
     pose_t = [torch.from_numpy(p).to(device) for p in poses]
     dense = {}
     _, dense["tsdf_dense"], k8_bound = compare_dense(intr, frames, pose_t, device, card)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     vol = tsdf_new(RES, 3.0, 0.03, dtype=torch.float32, device=device)
     for d, p in zip(frames, pose_t):
         vol, _ = tsdf_integrate_with_planes(vol, d, p, intr)
-    torch.cuda.synchronize()
-    fuse_s = time.perf_counter() - t0
-    print(f"# dense-{RES}: {N_FRAMES + 1} frames fused by K8 in {fuse_s:.4f} s = "
-          f"{fuse_s / (N_FRAMES + 1) * 1000:.3f} ms/frame (host clock, K8 warm) [{card}]",
-          flush=True)
     _, dense["planes_extract"], k7_bound = compare_extract(vol, f"dense-{RES}", card)
     render_ms(vol, pose_t[N_FRAMES], intr, card)
     time_kernels(list(dense), dense, {"tsdf_dense": k8_bound, "planes_extract": k7_bound}, card)
     del dense, vol
     torch.cuda.empty_cache()
     occupancy_report(intr, card)
-    for tag, kw, name, before in PROFILES[:2]:
-        report_profile(tag, intr, poses, frames, device, card, None, kw, name, before)
     # K2 on the systems of box-512's warm state (the probe runs no xla-480)
     systems = k2_systems(st_box, frames[N_FRAMES], intr)
     _, k2_calls, k2_bound = compare_k2(systems)
@@ -1786,9 +1601,9 @@ def run_worlds(intr, poses, device, card):
     of the path launched, no plain version, no frame dropped, the pose
     error within bench.py's budget ((0.15 + 150 noise) mm a frame + 2 mm,
     x2.5 in the curved world: 12.5 and 11.0 mm), and one more step makes
-    no host synchronisation; then its device time a step (profiler, 3
-    steps) and, on its last frame, K1, K3, K4, K5 and K6 against their
-    plain versions with phase 4's bounds (``compare_kernels``)."""
+    no host synchronisation; then, on its last frame, K1, K3, K4, K5 and
+    K6 against their plain versions with phase 4's bounds
+    (``compare_kernels``)."""
     from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
     from housescan_tpu_torch.ops import cuda_lib
 
@@ -1797,11 +1612,10 @@ def run_worlds(intr, poses, device, card):
         frames = world_frames(intr, poses, device, noise)
         budget = ((0.15 + 150.0 * noise) * N_FRAMES + 2.0) * factor
         cuda_lib.reset_counts()
-        st, secs, tracked = run_orbit(intr, poses, frames, RES, device)
+        st, tracked = run_orbit(intr, poses, frames, RES, device)
         launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
         err_mm = float(np.linalg.norm(st.pose[3, :3].cpu().numpy() - poses[N_FRAMES][3, :3])) * 1e3
-        print(f"# {tag} {intr.width}x{intr.height} (packed volume): {N_FRAMES} frames in "
-              f"{secs:.4f} s = {secs / N_FRAMES * 1000:.3f} ms/frame = {N_FRAMES / secs:.2f} fps; "
+        print(f"# {tag} {intr.width}x{intr.height} (packed volume): {N_FRAMES} frames; "
               f"pose error {err_mm:.3f} mm (budget {budget:.1f}); tracked "
               f"{sum(tracked)}/{len(tracked)}; last rmse {float(st.last_rmse) * 1000:.4f} mm corr "
               f"{int(st.last_corr)} [{card}]", flush=True)
@@ -1815,10 +1629,6 @@ def run_worlds(intr, poses, device, card):
         print(f"# {tag}: one more step made {len(syncs)} host synchronisations {syncs}", flush=True)
         if syncs:
             fail(f"the {tag} step made the host wait on the card at {syncs}")
-        dev_ms, n_launch = profile_steps(intr, poses, frames, RES, device,
-                                         os.path.join(OUT, f"profile_{tag}.txt"))[:2]
-        print(f"# {tag}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} launches/step "
-              f"(profiler, 3 steps) [{card}]", flush=True)
         st0 = kinfu_init(intr, resolution=RES, size_m=3.0, trunc=0.03, init_pose=poses[0],
                          dtype=torch.int32, device=device)
         st0 = kinfu_step(st0, frames[0], intr)
@@ -1840,9 +1650,6 @@ def room_poses(ri):
     return np.concatenate(sweeps)
 
 
-ROOM_PHASES = ("load", "corners", "cuboid", "move", "walls", "optimize", "xf", "export")
-
-
 def room_cycle(dirs, device, out):
     """The room stage over the scanned room directories with every scene on
     ``device``: load, corners (suggestions accepted as
@@ -1850,7 +1657,7 @@ def room_cycle(dirs, device, out):
     along x, the facing walls connected, positions optimised, .xf files,
     placed full-resolution clouds; that test's assertions. Returns (the
     rooms, their cuboid rmse, the optimiser's results, the .xf matrices,
-    placed point counts, host seconds by phase)."""
+    placed point counts)."""
     from itertools import product
 
     from housescan_tpu_torch.io.pcd import load_pcd
@@ -1861,21 +1668,10 @@ def room_cycle(dirs, device, out):
     )
     from housescan_tpu_torch.rooms.corners import accept_corner_suggestion
 
-    secs = dict.fromkeys(ROOM_PHASES, 0.0)
-    clock = [time.perf_counter()]
-
-    def lap(name):
-        if device == "cuda":
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        secs[name] += now - clock[0]
-        clock[0] = now
-
     scene = Scene(device=device)
     rooms = []
     for d in dirs:
         room = load_room(scene, d)
-        lap("load")
         room = suggest_corners(scene, room, cutoff_factor=1.3)
         if len(room.planes) < 6 or (len(room.corners) != 8 and len(room.suggested_corners) < 8):
             fail(f"rooms on {device}: {d} has {len(room.planes)} planes, {len(room.corners)} "
@@ -1892,7 +1688,6 @@ def room_cycle(dirs, device, out):
         if len(room.corners) != 8:
             fail(f"rooms on {device}: {d} has {len(room.corners)} corners")
         rooms.append(room)
-        lap("corners")
     rmses = []
     for i, room in enumerate(rooms):
         fit = fit_cuboid_to_room(scene, room)
@@ -1900,45 +1695,38 @@ def room_cycle(dirs, device, out):
             fail(f"rooms on {device}: room {i} cuboid fit {None if fit is None else fit[1]}")
         rooms[i] = fit[0]
         rmses.append(fit[1])
-    lap("cuboid")
     scene.update_room(translate_room(scene.rooms[rooms[1].room_id],
                                      np.array([3.0, 0.0, 0.0], np.float32), device=device))
-    lap("move")
     p0 = min(scene.rooms[rooms[0].room_id].planes, key=lambda p: p.normal[0])
     p1 = max(scene.rooms[rooms[1].room_id].planes, key=lambda p: p.normal[0])
     if connect_walls(scene, p0.plane_id, p1.plane_id, WallRelation.opposite(0.1)) is None:
         fail(f"rooms on {device}: the facing walls did not connect")
-    lap("walls")
     results = optimize_room_positions(scene)
     if not results or not all(np.isfinite(r[2]) for r in results):
         fail(f"rooms on {device}: optimize_room_positions gave {results}")
-    lap("optimize")
     xfs = export_all_room_xf_files(scene, os.path.join(out, f"xf_{device}"))
     if len(xfs) != 2:
         fail(f"rooms on {device}: {len(xfs)} .xf files")
-    lap("xf")
     placed = []
     for room in rooms:
         path = export_room_full_res(scene.rooms[room.room_id],
                                     os.path.join(out, f"placed_{device}_{room.room_id}.pcd"),
                                     device=device)
         placed.append(len(load_pcd(path)))
-    lap("export")
     if min(placed) <= 1000:
         fail(f"rooms on {device}: placed clouds of {placed} points")
     return ([scene.rooms[r.room_id] for r in rooms], rmses, results, [load_xf(x) for x in xfs],
-            placed, secs)
+            placed)
 
 
-def run_rooms(intr, device, card):
+def run_rooms(intr, device):
     """Phase 15: two rooms scanned with ``scan_to_room_dir`` at ``Config()``
     (512^3 float32, 640x480; 32 known poses each, tests/test_end_to_end.py's
     sweeps), then the room stage on the card (``room_cycle``), then again
     on the CPU from the same directories; the card held to the CPU:
     corners within 1e-4 m (as point sets: a cuboid's parametrisation is
     not unique), cuboid rmse within 1e-5, optimised corner means within
-    1e-4 m, .xf matrices within 1e-5. The card's cycle runs twice, the
-    first paying its libraries' first calls, and both are timed."""
+    1e-4 m, .xf matrices within 1e-5."""
     from housescan_tpu_torch.capture.replay import DepthStream
     from housescan_tpu_torch.config import Config
     from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
@@ -1953,15 +1741,9 @@ def run_rooms(intr, device, card):
     for ri in range(2):
         poses = room_poses(ri)
         frames = render_depth_stream(intr, poses, half, boxes, seed=ri, device=device).cpu().numpy()
-        timings = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         dirs.append(scan_to_room_dir(DepthStream(frames=frames, intrinsics=intr),
                                      os.path.join(out, f"scan{ri}"), config=Config(),
-                                     init_pose=poses[0], known_poses=poses, timings=timings))
-        print(f"# rooms: scan {ri} at Config() ({len(poses)} known poses): "
-              f"{time.perf_counter() - t0:.4f} s, "
-              + " ".join(f"{k} {v:.4f} s" for k, v in timings.items()) + f" [{card}]", flush=True)
+                                     init_pose=poses[0], known_poses=poses))
         del frames
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     print(f"# rooms: scans' launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
@@ -1970,13 +1752,8 @@ def run_rooms(intr, device, card):
                  tuple(k for k in cuda_lib.KERNEL_PATH if k not in ("bilateral", "icp_level")))
     torch.cuda.empty_cache()
 
-    # the card's first cycle pays its libraries' first calls; the second is warm
-    res = {run: room_cycle(dirs, run.split()[0], out) for run in ("cuda", "cuda warm", "cpu")}
-    (gr, grm, gres, gxf, gpl, _), (cr, crm, cres, cxf, cpl, _) = res["cuda"], res["cpu"]
-    for run, r in res.items():
-        s = r[-1]
-        print(f"# rooms on {run}: host seconds " + " ".join(f"{k} {s[k]:.4f}" for k in ROOM_PHASES)
-              + f"; total {sum(s.values()):.4f} s [{card}]", flush=True)
+    (gr, grm, gres, gxf, gpl), (cr, crm, cres, cxf, cpl) = (room_cycle(dirs, d, out)
+                                                            for d in ("cuda", "cpu"))
     corner_err = 0.0
     for a, b in zip(gr, cr):
         ca, cb = (np.stack([c for _, c in r.corners]) for r in (a, b))
@@ -2029,12 +1806,12 @@ def run_bf16(intr, poses, frames, device, card, f32_times, times, bounds):
     warm pass, K4 and K5 against their plain versions (bit-identical), K4
     and K5 on the empty list, split against unsplit bit-identical, K7 as
     the oracle of K4's planes and against its plain version
-    (bit-identical), the bfloat16 parity with float32 at full width, then
-    the timed pass with phase 6's gates; K4, K5 and K7 timed beside their
-    float32 times of phase 12. Returns (rows of the kernels line, the
-    timed pass's launches)."""
+    (bit-identical), the bfloat16 parity with float32 at full width; the
+    warm orbit gated as phase 4's (``warm_states``); K4, K5 and K7 timed
+    beside their float32 times of phase 12. Returns the rows of the
+    kernels line."""
     pose1 = torch.from_numpy(poses[1]).to(device)
-    st, st0, warm_b = warm_states(intr, poses, frames, device, torch.bfloat16)
+    st, st0, launches = warm_states(intr, poses, frames, device, torch.bfloat16, card)
     b16 = {"tsdf_stream@bf16": compare_stream(st, frames[N_FRAMES], intr),
            "tsdf_free@bf16": compare_free(st, st0, frames[N_FRAMES], frames[1], pose1, intr,
                                           card)}
@@ -2063,9 +1840,6 @@ def run_bf16(intr, poses, frames, device, card, f32_times, times, bounds):
           f"bit-identical, {observed} observed voxels", flush=True)
     bf16_parity(intr, poses, frames, device, card)
     torch.cuda.empty_cache()
-    st, _, launches = timed_orbit(intr, poses, frames, device, card, torch.bfloat16, warm_b)
-    del st
-    torch.cuda.empty_cache()
     # beside the float32 times of this run (phase 12: K4 and K5 on
     # box-512-f32, K7 on dense-512's float32 volume and box-512's packed one)
     for name, (ms, plain_ms, bound_ms, bound_by) in b16_times.items():
@@ -2078,12 +1852,12 @@ def run_bf16(intr, poses, frames, device, card, f32_times, times, bounds):
     for name, (ms, plain_ms, bound_ms, bound_by) in b16_times.items():
         base = name.split("@")[0]
         src, replaces = KERNELS[base]
-        # launches: K4's and K5's in the timed bf16 pass, K7's in its oracle run
+        # launches: K4's and K5's in the bf16 orbit, K7's in its oracle run
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[base] if base != "planes_extract" else k7_launches,
                      "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    return rows, launches
+    return rows
 
 
 def sharded_maps_equal(sh, ref):
@@ -2173,23 +1947,20 @@ def compare_slab(pre, ref, depth, intr, i):
     return errs, int(fwl.count[0]), int(wl.count[0]), n_hit
 
 
-def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
+def run_sharded(intr, poses, frames, device, card, box_pose):
     """Phase 17, sharded-512: the X-slab sharded kernel-path step on a
     4-slab mesh of this one card (4 x 128 x 512 x 512 packed slabs).
     Frames 0-2 teacher-forced from the single-device state
     (``sharded_maps_equal``); then the orbit runs free from a fresh state:
     pose error <= 5 mm and within 2 mm of box-512's final position, K1
     and K3 launched, K4, K5 and K6 four times a step, no plain version, no
-    host synchronisation in one more step; ms/frame, and one profiled
-    step's device time and launches beside box-512's. On frame 2, K5, K4
+    host synchronisation in one more step. On frame 2, K5, K4
     and K6 on each slab but the first against their plain versions at the
     slab's shapes and offset (``compare_slab``). Then the XLA path
     on 4 slabs at 480^3: frame 0's integrate against the single-device
     one (bit-identical: within the reference's 1e-5), and 3 frames each tracked (the pose
     within half a frame's motion, 2.5 mm, of the truth). Returns the free
     run's launches and the slab comparisons' largest errors."""
-    from torch.profiler import ProfilerActivity, profile
-
     from housescan_tpu_torch.kinfu.pipeline import kinfu_init, kinfu_step
     from housescan_tpu_torch.kinfu.tsdf import tsdf_integrate, tsdf_new
     from housescan_tpu_torch.ops import cuda_lib
@@ -2234,21 +2005,15 @@ def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
     if st.volume.slabs[0].shape != (RES // 4, RES, RES) or st.volume.slabs[0].dtype != torch.int32:
         fail(f"sharded-{RES}: the slabs are {tuple(st.volume.slabs[0].shape)}")
     cuda_lib.reset_counts()
-    st = step(st, frames[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, N_FRAMES + 1):
+    for i in range(N_FRAMES + 1):
         st = step(st, frames[i])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     pos = st.pose[3, :3].cpu().numpy()
     err_mm = float(np.linalg.norm(pos - poses[N_FRAMES][3, :3])) * 1e3
     d_box = float(np.linalg.norm(pos - box_pose)) * 1e3
     print(f"# sharded-{RES} {intr.width}x{intr.height} (4 packed slabs of "
-          f"{tuple(st.volume.slabs[0].shape)} on one card): {N_FRAMES} frames in {secs:.4f} s = "
-          f"{secs / N_FRAMES * 1000:.3f} ms/frame; pose error {err_mm:.3f} mm, {d_box:.3f} mm from "
-          f"box-{RES}'s final position [{card}]", flush=True)
+          f"{tuple(st.volume.slabs[0].shape)} on one card): {N_FRAMES} frames; pose error "
+          f"{err_mm:.3f} mm, {d_box:.3f} mm from box-{RES}'s final position [{card}]", flush=True)
     print(f"# sharded-{RES} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
     n_steps = N_FRAMES + 1
     want = {"bilateral": n_steps, "icp_level": 3 * n_steps, "tsdf_stream": 4 * n_steps,
@@ -2263,15 +2028,6 @@ def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
           flush=True)
     if syncs:
         fail(f"the sharded-{RES} step made the host wait on the card at {syncs}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(st, frames[N_FRAMES])
-        torch.cuda.synchronize()
-    dev = device_us(prof, 1)
-    dev_ms = sum(v[0] for v in dev.values()) / 1000.0
-    n_launch = sum(v[1] for v in dev.values())
-    print(f"# profile sharded-{RES}: device kernel time {dev_ms:.3f} ms/step in {n_launch:.0f} "
-          f"launches/step; box-{RES} {box_profile[0]:.3f} ms in {box_profile[1]:.0f} (phase 13) "
-          f"[{card}]", flush=True)
     del st
     torch.cuda.empty_cache()
 
@@ -2291,16 +2047,12 @@ def run_sharded(intr, poses, frames, device, card, box_pose, box_profile):
              f"(tsdf {dt})")
     del got, single
     errs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for k in (1, 2):
         xs = xstep(xs, frames[k])
         errs.append(float(np.linalg.norm(xs.pose[3, :3].cpu().numpy() - poses[k][3, :3])) * 1e3)
-    secs_x = time.perf_counter() - t0
     print(f"# sharded-xla-{XLA_RES} (4 float32 slabs on one card): frame 0 integrate against "
           f"the single-device one: bit-identical (tsdf max diff {dt:.3e}); frames 1-2 pose "
-          f"error {[round(e, 4) for e in errs]} mm, {secs_x / 2 * 1000:.1f} ms/frame [{card}]",
-          flush=True)
+          f"error {[round(e, 4) for e in errs]} mm [{card}]", flush=True)
     if max(errs) > 2.5:
         fail(f"sharded-xla-{XLA_RES}: a frame was not tracked (pose errors {errs} mm)")
     del xs
@@ -2319,7 +2071,7 @@ def run_building(intr, device, card):
     volumes differ by the packed layout's rounding (a step of 0.9 um of
     signed distance), which can move a zero crossing's voxel and so the
     sampled cloud RANSAC fits, but not a wall's fitted offset by more than
-    a third of a 5.9 mm voxel. Prints each phase's host seconds."""
+    a third of a 5.9 mm voxel."""
     from housescan_tpu_torch.capture.replay import DepthStream
     from housescan_tpu_torch.config import Config
     from housescan_tpu_torch.kinfu.building import RoomScan, scan_building
@@ -2338,15 +2090,13 @@ def run_building(intr, device, card):
     for route, mesh in (("single", None), ("sharded", make_mesh(4, devices=[device] * 4))):
         d = os.path.join(OUT, f"building_{route}")
         shutil.rmtree(d, ignore_errors=True)
-        timings = {}
         cuda_lib.reset_counts()
-        scene, fitted, bdir = scan_building(rooms, d, config=Config(), mesh=mesh, timings=timings)
+        scene, fitted, bdir = scan_building(rooms, d, config=Config(), mesh=mesh)
         launches = dict(cuda_lib.launch_counts)
         bc = json.loads((bdir / "building_checkpoint.json").read_text())
-        print(f"# building ({route}): host seconds " + " ".join(f"{k} {v:.4f}" for k, v in
-                                                                timings.items())
-              + f"; fit rmse {bc['fit_rmse']}, {bc['n_wall_connections']} wall connections, "
-              f"optimiser {bc['optimize']}; launches {json.dumps(launches)} [{card}]", flush=True)
+        print(f"# building ({route}): fit rmse {bc['fit_rmse']}, {bc['n_wall_connections']} wall "
+              f"connections, optimiser {bc['optimize']}; launches {json.dumps(launches)} [{card}]",
+              flush=True)
         if len(scene.rooms) != 2 or len(fitted) != 2 or bc["rooms_done"] != ["room0", "room1"]:
             fail(f"building ({route}): {len(scene.rooms)} rooms, done {bc['rooms_done']}")
         for r in rooms:
@@ -2376,47 +2126,25 @@ TRACE_KERNELS = {"bilateral": "bilateral_kernel", "icp_level": "icp_level_kernel
                  "raycast_tiles": "raycast_tiles_kernel", "chunk_select": "chunk_classify_kernel"}
 
 
-def cli(args, what, secs, card, device="cuda"):
+def cli(args, what, card, device="cuda"):
     """``housescan_tpu_torch.cli.main(["--device", device, *args])`` in this
-    process; returns its standard output. A command that exits (the CLI's
-    SystemExit on a refused input) fails the phase. Prints and records the
-    command's host seconds."""
+    process; returns its standard output and prints its last lines. A
+    command that exits (the CLI's SystemExit on a refused input) fails the
+    phase."""
     import contextlib
     import io
 
     from housescan_tpu_torch.cli import main as cli_main
 
     buf = io.StringIO()
-    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             cli_main(["--device", device, *args])
     except SystemExit as e:
         fail(f"cli {what}: exited ({e}); output: {buf.getvalue()[-2000:]}")
-    if device.startswith("cuda"):
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    secs[what] = secs.get(what, 0.0) + dt
     out = buf.getvalue()
-    print(f"# cli {what}: {dt:.4f} s [{card}]; " + " | ".join(out.strip().splitlines()[-3:]),
-          flush=True)
+    print(f"# cli {what} [{card}]: " + " | ".join(out.strip().splitlines()[-3:]), flush=True)
     return out
-
-
-def timed_calls(module, name, store):
-    """Wrap ``module.name`` so each call's host seconds land in ``store``;
-    returns a function that restores it."""
-    orig = getattr(module, name)
-
-    def wrapped(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return orig(*args, **kwargs)
-        finally:
-            store.append(time.perf_counter() - t0)
-
-    setattr(module, name, wrapped)
-    return lambda: setattr(module, name, orig)
 
 
 def relative_error_mm(traj, truth, first):
@@ -2439,7 +2167,7 @@ def library_trajectory(frames, intr, cfg, out, device):
     return np.load(os.path.join(d, "trajectory.npz"))["poses"]
 
 
-def cli_live(stream_path, frames_mm, poses, out, secs, card, flags, device, realtime, intr, cfg,
+def cli_live(stream_path, frames_mm, poses, out, card, flags, device, realtime, intr, cfg,
              uncounted):
     """``scan --live`` over ``HOUSESCAN_FAKE_DEVICE`` = the recording; the
     frames the scan read are matched to the recording by their pixels.
@@ -2470,7 +2198,7 @@ def cli_live(stream_path, frames_mm, poses, out, secs, card, flags, device, real
     tag = "scan --live --realtime" if realtime else "scan --live"
     try:
         text = cli(["scan", "--live", "--max-frames", str(len(frames_mm)), *flags,
-                    *(["--realtime"] if realtime else []), out], tag, secs, card, device)
+                    *(["--realtime"] if realtime else []), out], tag, card, device)
     finally:
         live.LiveSource.read = orig_read
         live.open_live_source = orig_open
@@ -2519,10 +2247,8 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
     import importlib
 
     from housescan_tpu_torch.capture.replay import record_stream
-    from housescan_tpu_torch.io import checkpoint
     from housescan_tpu_torch.io.checkpoint import load_scene, save_scene
     from housescan_tpu_torch.io.xf import load_xf
-    from housescan_tpu_torch.kinfu import scan
     from housescan_tpu_torch.kinfu.synthetic import furnished_room, render_depth_stream
     from housescan_tpu_torch.ops import cuda_lib
     from housescan_tpu_torch.rooms import load_room
@@ -2536,7 +2262,7 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     flags = list(flags)
-    secs, launches, plain_runs = {}, dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    launches, plain_runs = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
 
     def uncounted(fn, *args):
         """``fn(*args)`` with the counters left as they were: a comparison,
@@ -2567,96 +2293,89 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
 
     # 2. scan with a mesh and a checkpoint every 10 frames, then resume
     cuda_lib.reset_counts()  # what earlier phases launched is not this phase's
-    scan_ckpt, scene_ckpt = [], []
-    restore = [timed_calls(scan, "save_scan_state", scan_ckpt),
-               timed_calls(checkpoint, "save_scene", scene_ckpt)]
-    try:
-        take_counts()
-        cli(["--scene", scene_path, "scan", orbit, room_a, "--mesh", "--checkpoint-every", "10",
-             *flags], "scan", secs, card, device)
-        scan_launches = dict(launches)
-        plain = take_counts()
-        scan_launches = {k: launches[k] - scan_launches[k] for k in KERNELS}
-        if on_card:
-            check_counts("cli scan", scan_launches, plain, cuda_lib.KERNEL_PATH + ("marching_tets",))
-        traj = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
-        err = relative_error_mm(traj, poses[-1], poses[0])
-        lib = uncounted(library_trajectory, frames_mm.astype(np.float32) * np.float32(0.001),
-                        intr, cfg, os.path.join(out, "room_a_library"), device)
-        d_lib = float(np.abs(lib - traj).max()) if lib.shape == traj.shape else float("inf")
-        if traj.shape[0] != len(poses) or d_lib > 1e-6:
-            fail(f"cli scan: {traj.shape[0]} poses, {d_lib} from scan_to_room_dir's trajectory")
-        room = load_room(Scene(device=device), room_a)
-        if len(room.planes) < 2 or len(room.cloud.points) < 1000:
-            fail(f"cli scan: room_a has {len(room.planes)} planes, {len(room.cloud.points)} points")
-        ck_bytes = os.path.getsize(os.path.join(room_a, "scan_checkpoint.npz"))
-        cli(["--scene", scene_path, "scan", orbit, room_a, "--resume", "--checkpoint-every", "10",
-             *flags], "scan --resume", secs, card, device)
-        traj2 = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
-        resume_err = float(np.abs(traj2 - traj).max())
-        print(f"# cli scan: the trajectory within {d_lib:.3e} of scan_to_room_dir's; pose "
-              f"error {err:.3f} mm (from the identity start), {len(room.planes)} planes; scan checkpoint writes {len(scan_ckpt)} x "
-              f"{[f'{s:.4f}' for s in scan_ckpt]} s ({ck_bytes} bytes); the resumed "
-              f"trajectory within {resume_err:.3e} of the first [{card}]", flush=True)
-        if traj2.shape != traj.shape or resume_err > 1e-6:
-            fail(f"cli scan --resume: the trajectory moved by {resume_err}")
+    take_counts()
+    cli(["--scene", scene_path, "scan", orbit, room_a, "--mesh", "--checkpoint-every", "10",
+         *flags], "scan", card, device)
+    scan_launches = dict(launches)
+    plain = take_counts()
+    scan_launches = {k: launches[k] - scan_launches[k] for k in KERNELS}
+    if on_card:
+        check_counts("cli scan", scan_launches, plain, cuda_lib.KERNEL_PATH + ("marching_tets",))
+    traj = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
+    err = relative_error_mm(traj, poses[-1], poses[0])
+    lib = uncounted(library_trajectory, frames_mm.astype(np.float32) * np.float32(0.001),
+                    intr, cfg, os.path.join(out, "room_a_library"), device)
+    d_lib = float(np.abs(lib - traj).max()) if lib.shape == traj.shape else float("inf")
+    if traj.shape[0] != len(poses) or d_lib > 1e-6:
+        fail(f"cli scan: {traj.shape[0]} poses, {d_lib} from scan_to_room_dir's trajectory")
+    room = load_room(Scene(device=device), room_a)
+    if len(room.planes) < 2 or len(room.cloud.points) < 1000:
+        fail(f"cli scan: room_a has {len(room.planes)} planes, {len(room.cloud.points)} points")
+    ck_bytes = os.path.getsize(os.path.join(room_a, "scan_checkpoint.npz"))
+    cli(["--scene", scene_path, "scan", orbit, room_a, "--resume", "--checkpoint-every", "10",
+         *flags], "scan --resume", card, device)
+    traj2 = np.load(os.path.join(room_a, "trajectory.npz"))["poses"]
+    resume_err = float(np.abs(traj2 - traj).max())
+    print(f"# cli scan: the trajectory within {d_lib:.3e} of scan_to_room_dir's; pose "
+          f"error {err:.3f} mm (from the identity start), {len(room.planes)} planes; scan "
+          f"checkpoint {ck_bytes} bytes; the resumed trajectory within {resume_err:.3e} of the "
+          f"first [{card}]", flush=True)
+    if traj2.shape != traj.shape or resume_err > 1e-6:
+        fail(f"cli scan --resume: the trajectory moved by {resume_err}")
 
-        # 3. the live scan over the recording, unpaced and paced at 30 fps
-        live_stats = [cli_live(orbit, frames_mm, poses, os.path.join(out, f"room_live{k}"),
-                               secs, card, flags, device, bool(k), intr, cfg, uncounted)
-                      for k in (0, 1)]
-        take_counts()
+    # 3. the live scan over the recording, unpaced and paced at 30 fps
+    live_stats = [cli_live(orbit, frames_mm, poses, os.path.join(out, f"room_live{k}"), card,
+                           flags, device, bool(k), intr, cfg, uncounted)
+                  for k in (0, 1)]
+    take_counts()
 
-        # 4. the room stage on room_a and phase 15's two scanned rooms
-        dirs = [os.path.join(rooms_dir, f"scan{ri}") for ri in range(2)]
-        for d in (room_a, *dirs):
-            cli(["--scene", scene_path, "add-room", d], "add-room", secs, card, device)
-        sc = load_scene(scene_path, device="cpu")
-        ids = sorted(sc.rooms)
-        for rid in ids:
-            cli(["--scene", scene_path, "suggest", "--room", str(rid), "--cutoff", "1.3"],
-                "suggest", secs, card, device)
-        # as room_cycle: where suggest left fewer than 8 corners, accept the
-        # suggestions nearest the cloud's bounding-box corners
-        from itertools import product
+    # 4. the room stage on room_a and phase 15's two scanned rooms
+    dirs = [os.path.join(rooms_dir, f"scan{ri}") for ri in range(2)]
+    for d in (room_a, *dirs):
+        cli(["--scene", scene_path, "add-room", d], "add-room", card, device)
+    sc = load_scene(scene_path, device="cpu")
+    ids = sorted(sc.rooms)
+    for rid in ids:
+        cli(["--scene", scene_path, "suggest", "--room", str(rid), "--cutoff", "1.3"],
+            "suggest", card, device)
+    # as room_cycle: where suggest left fewer than 8 corners, accept the
+    # suggestions nearest the cloud's bounding-box corners
+    from itertools import product
 
-        sc = load_scene(scene_path, device="cpu")
-        for rid in ids[1:]:
-            r = sc.rooms[rid]
-            if len(r.corners) == 8:
-                continue
-            lo, hi = r.cloud.points.min(0), r.cloud.points.max(0)
-            for sx, sy, sz in product((0, 1), repeat=3):
-                target = np.array([[lo[0], hi[0]][sx], [lo[1], hi[1]][sy], [lo[2], hi[2]][sz]])
-                sid, spt = min(r.suggested_corners, key=lambda s: np.linalg.norm(s[1] - target))
-                r.suggested_corners = [s for s in r.suggested_corners if s[0] != sid]
-                cli(["--scene", scene_path, "accept-corner", "--room", str(rid), str(sid)],
-                    "accept-corner", secs, card, device)
-        for rid in ids[1:]:
-            cli(["--scene", scene_path, "fit-cuboid", "--room", str(rid)], "fit-cuboid", secs,
-                card, device)
-            cli(["--scene", scene_path, "auto-align", "--room", str(rid)], "auto-align", secs,
-                card, device)
-        cli(["--scene", scene_path, "move", "--room", str(ids[2]), "3", "0", "0"], "move", secs,
+    sc = load_scene(scene_path, device="cpu")
+    for rid in ids[1:]:
+        r = sc.rooms[rid]
+        if len(r.corners) == 8:
+            continue
+        lo, hi = r.cloud.points.min(0), r.cloud.points.max(0)
+        for sx, sy, sz in product((0, 1), repeat=3):
+            target = np.array([[lo[0], hi[0]][sx], [lo[1], hi[1]][sy], [lo[2], hi[2]][sz]])
+            sid, spt = min(r.suggested_corners, key=lambda s: np.linalg.norm(s[1] - target))
+            r.suggested_corners = [s for s in r.suggested_corners if s[0] != sid]
+            cli(["--scene", scene_path, "accept-corner", "--room", str(rid), str(sid)],
+                "accept-corner", card, device)
+    for rid in ids[1:]:
+        cli(["--scene", scene_path, "fit-cuboid", "--room", str(rid)], "fit-cuboid",
             card, device)
-        sc = load_scene(scene_path, device="cpu")
-        p0 = min(sc.rooms[ids[1]].planes, key=lambda p: p.normal[0])
-        p1 = max(sc.rooms[ids[2]].planes, key=lambda p: p.normal[0])
-        cli(["--scene", scene_path, "connect", str(p0.plane_id), str(p1.plane_id)], "connect",
-            secs, card, device)
-        text = cli(["--scene", scene_path, "optimize"], "optimize", secs, card, device)
-        if "aligned" not in text:
-            fail("cli optimize: no wall connection was optimised")
-        export = os.path.join(out, "export")
-        cli(["--scene", scene_path, "export", "--out", export, "--full-res"], "export", secs,
+        cli(["--scene", scene_path, "auto-align", "--room", str(rid)], "auto-align",
             card, device)
-        image = os.path.join(out, "scene.ppm")
-        cli(["--scene", scene_path, "render", "--out", image, "--width", "640", "--height", "480"],
-            "render", secs, card, device)
-        info = cli(["--scene", scene_path, "info"], "info", secs, card, device)
-    finally:
-        for r in restore:
-            r()
+    cli(["--scene", scene_path, "move", "--room", str(ids[2]), "3", "0", "0"], "move",
+        card, device)
+    sc = load_scene(scene_path, device="cpu")
+    p0 = min(sc.rooms[ids[1]].planes, key=lambda p: p.normal[0])
+    p1 = max(sc.rooms[ids[2]].planes, key=lambda p: p.normal[0])
+    cli(["--scene", scene_path, "connect", str(p0.plane_id), str(p1.plane_id)], "connect",
+        card, device)
+    text = cli(["--scene", scene_path, "optimize"], "optimize", card, device)
+    if "aligned" not in text:
+        fail("cli optimize: no wall connection was optimised")
+    export = os.path.join(out, "export")
+    cli(["--scene", scene_path, "export", "--out", export, "--full-res"], "export",
+        card, device)
+    image = os.path.join(out, "scene.ppm")
+    cli(["--scene", scene_path, "render", "--out", image, "--width", "640", "--height", "480"],
+        "render", card, device)
+    info = cli(["--scene", scene_path, "info"], "info", card, device)
     sc = load_scene(scene_path, device="cpu")
     again = os.path.join(out, "scene_again.housescan")
     save_scene(sc, again)
@@ -2678,16 +2397,15 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
     fitted = [len(sc.rooms[r].corners) for r in ids]
     print(f"# cli room stage: {len(sc.rooms)} rooms, corners {fitted}, "
           f"{len(sc.connected_walls)} wall connection(s), {len(xfs)} .xf files, placed {placed}, "
-          f"image non-background {nonbg:.3f}; scene round-trips {same}; scene checkpoint writes "
-          f"{len(scene_ckpt)} x {np.mean(scene_ckpt):.4f} s (max {max(scene_ckpt):.4f}, "
-          f"{os.path.getsize(scene_path)} bytes) [{card}]", flush=True)
+          f"image non-background {nonbg:.3f}; scene round-trips {same}; scene checkpoint "
+          f"{os.path.getsize(scene_path)} bytes [{card}]", flush=True)
     if not (same and xf_ok and data.startswith(head) and nonbg > 0.05 and len(placed) == 3
             and len(sc.connected_walls) == 1 and info.startswith("scene: 3 rooms")):
         fail("cli room stage: the scene, the .xf files, the export or the image is wrong")
 
     # 5. planes of the scanned cloud
     text = cli(["detect-planes", os.path.join(room_a, "cloud_downsampled.pcd")], "detect-planes",
-               secs, card, device)
+               card, device)
     if int(text.split("detected ")[1].split()[0]) < 2:
         fail(f"cli detect-planes: {text.strip()}")
 
@@ -2705,7 +2423,7 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
     take_counts()
     building = os.path.join(out, "building")
     text = cli(["--scene", os.path.join(out, "building.housescan"), "scan-building", "--sharded",
-                "--known-poses", building, *streams, *flags], "scan-building --sharded", secs,
+                "--known-poses", building, *streams, *flags], "scan-building --sharded",
                card, device)
     bc = json.loads(open(os.path.join(building, "building_checkpoint.json")).read())
     if bc["rooms_done"] != ["room0", "room1"] or bc["n_wall_connections"] < 1:
@@ -2714,7 +2432,7 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
     refuse_dev = "cuda:0" if on_card else device
     refused = os.path.join(out, "refused")
     cli(["refuse", refused, *streams, "--trajectories", *trajs, "--devices", "2x2", *flags],
-        "refuse --devices 2x2", secs, card, refuse_dev)
+        "refuse --devices 2x2", card, refuse_dev)
     for ri in range(2):
         t = np.load(os.path.join(refused, f"room{ri}", "trajectory.npz"))["poses"]
         if t.shape != (32, 4, 4) or not os.path.exists(os.path.join(refused, f"room{ri}",
@@ -2779,16 +2497,13 @@ def run_cli(intr, poses, frames, card, device="cuda", flags=(), cfg=None, rooms_
         torch.cuda.empty_cache()
 
     # 10. the multi-device dry run, its 4 devices one card
-    t0 = time.perf_counter()
     dryrun = importlib.import_module("housescan_tpu_torch.parallel.dryrun")
     dry = dryrun.dryrun_multichip(4, device="cuda:0" if on_card else device)
-    print(f"# cli dryrun_multichip(4): {time.perf_counter() - t0:.4f} s, {json.dumps(dry)} "
-          f"[{card}]", flush=True)
+    print(f"# cli dryrun_multichip(4): {json.dumps(dry)} [{card}]", flush=True)
     take_counts()
     if on_card and any(plain_runs.values()):
         fail(f"cli: plain versions ran {plain_runs}")
-    print(f"# cli phase: host seconds " + " ".join(f"{k} {v:.4f}" for k, v in secs.items())
-          + f"; live {json.dumps(live_stats)}; launches {json.dumps(launches)} [{card}]",
+    print(f"# cli phase: live {json.dumps(live_stats)}; launches {json.dumps(launches)} [{card}]",
           flush=True)
     return launches
 
@@ -2822,9 +2537,11 @@ def main() -> None:
         mesh_probe(intr, poses, frames, device, card)
         return
 
-    # 4. box-512 (packed): warm orbit, then each kernel against its plain version
-    errs, calls, bounds, sizes, warm_s, st = box_kernels(intr, poses, frames, device, card)
+    # 4. box-512 (packed): the gated orbit, then each kernel against its plain version
+    errs, calls, bounds, sizes, st = box_kernels(intr, poses, frames, device, card)
+    box_pose = st.pose[3, :3].cpu().numpy()
     del st
+    torch.cuda.empty_cache()
     mark(4, t_start)
 
     # 5. split and unsplit integrates of the orbit
@@ -2835,15 +2552,8 @@ def main() -> None:
           f"{observed} observed voxels", flush=True)
     mark(5, t_start)
 
-    # 6. the timed main-path run, with launch counts
-    st, secs, _ = timed_orbit(intr, poses, frames, device, card, torch.int32, warm_s)
-    box_pose = st.pose[3, :3].cpu().numpy()
-    del st
-    torch.cuda.empty_cache()
-    mark(6, t_start)
-
     # 7. box-512-f32: the kernel path on the float32 volume
-    f32, st, warm_f = f32_kernels(intr, poses, frames, device, card)
+    f32, st = f32_kernels(intr, poses, frames, device, card)
     same, observed = split_orbit_identical(intr, poses, frames, device, torch.float32)
     if not same:
         fail("box-512-f32: the orbit integrated with the free split differs from the unsplit one")
@@ -2852,9 +2562,6 @@ def main() -> None:
     diff7, n7, v7 = k7_oracle(st, frames[N_FRAMES], intr)
     print(f"# box-{RES}-f32 K7 as the oracle of K4's planes after a step: {n7} listed chunks, "
           f"{v7} valid sub-blocks, valid flags identical, fields max diff {diff7}", flush=True)
-    del st
-    torch.cuda.empty_cache()
-    st, secs_f, _ = timed_orbit(intr, poses, frames, device, card, torch.float32, warm_f)
     del st
     torch.cuda.empty_cache()
     mark(7, t_start)
@@ -2884,8 +2591,8 @@ def main() -> None:
 
     # 12. kernel vs plain times, CUDA events; resident blocks an SM
     occupancy_report(intr, card)
-    # launches: the kernel path's from the scan, K2's from the timed xla-480
-    # pass, K7's and K8's from the dense-512 run
+    # launches: the kernel path's from the scan, K2's from the xla-480
+    # orbit, K7's and K8's from the dense-512 run
     path_launches = dict(scan_launches, solve6=xla["launches"]["solve6"],
                          planes_extract=dense["launches"]["planes_extract"],
                          tsdf_dense=dense["launches"]["tsdf_dense"])
@@ -2907,26 +2614,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark(12, t_start)
 
-    # 13. where the device time goes, on each path
-    box_profile = [report_profile(tag, intr, poses, frames, device, card, secs_, kw, name, before)
-                   for (tag, kw, name, before), secs_ in zip(PROFILES, (secs, secs_f, xla["secs"]))
-                   ][0]
-    mark(13, t_start)
-
     # 14. the curved world and the noisy, quantised world on the kernel path
     run_worlds(intr, poses, device, card)
     mark(14, t_start)
 
     # 15. two scanned rooms through the room stage, on the card and the CPU
-    run_rooms(intr, device, card)
+    run_rooms(intr, device)
     mark(15, t_start)
 
     # 16. box-512-bf16: the kernel path on the bfloat16 volume
-    rows += run_bf16(intr, poses, frames, device, card, f32_times, times, bounds)[0]
+    rows += run_bf16(intr, poses, frames, device, card, f32_times, times, bounds)
     mark(16, t_start)
 
     # 17. sharded-512: the X-slab sharded step, 4 slabs on this card; the XLA path at 480^3
-    sharded, slab_errs = run_sharded(intr, poses, frames, device, card, box_pose, box_profile)
+    sharded, slab_errs = run_sharded(intr, poses, frames, device, card, box_pose)
     for row in rows:
         if "@" not in row["name"]:
             row["launches_sharded"] = sharded[row["name"]]

@@ -148,7 +148,6 @@ def scan_building(
     layout: str = "chain",
     floors=1,
     device="cuda",
-    timings: Optional[dict] = None,
 ):
     """Scan every room, then assemble, arrange, optimise and export.
     Returns ``(scene, fitted_rooms, out_dir)``.
@@ -163,12 +162,7 @@ def scan_building(
     Cantor grid ``config.rooms.grid_spacing`` apart and chains every
     pair of neighbours along X and Z, and ``floors`` (a count or the
     rooms of each floor) stacks floors on Y (upper floors at more
-    negative Y: world up is -Y), chaining ceilings to the floors above. A
-    ``timings`` dict receives the host seconds of ``fusion``, ``load``
-    (with corners), ``cuboid``, ``walls`` (arrangement and
-    optimisation) and ``export``."""
-    import time
-
+    negative Y: world up is -Y), chaining ceilings to the floors above."""
     from housescan_tpu_torch.rooms import (
         Axis,
         Scene,
@@ -196,15 +190,6 @@ def scan_building(
         if progress and done:
             print(f"building resume: rooms already scanned: {done}")
 
-    def lap(name, t0):
-        if timings is not None:
-            for d in {device, *(mesh.devices if mesh is not None else [])}:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
-            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-        return time.perf_counter()
-
-    t0 = time.perf_counter()
     use_sharded = mesh is not None and config.tsdf.resolution >= sharded_min_resolution
     room_dirs = []
     for room in rooms:
@@ -225,7 +210,6 @@ def scan_building(
                              known_poses=room.known_poses, device=device)
         done.append(room.name)
         bc_path.write_text(json.dumps({"rooms_done": done}))
-    t0 = lap("fusion", t0)
 
     scene = Scene(device=str(device))
     loaded = []
@@ -233,7 +217,6 @@ def scan_building(
         r = suggest_corners(scene, load_room(scene, rd))
         # more than 8 candidates (furniture planes): the 8 at the cloud's extremes
         loaded.append(adopt_bbox_corners(scene, r))
-    t0 = lap("load", t0)
 
     # one batched cuboid fit for every room with 8 corners
     fit_rmse: dict = {}
@@ -255,7 +238,6 @@ def scan_building(
             fit_rmse[rooms[i].name] = float(np.sqrt(errors[row]))
             if progress:
                 print(f"  {rooms[i].name}: cuboid RMSE {fit_rmse[rooms[i].name] * 1000:.2f} mm")
-    t0 = lap("cuboid", t0)
 
     def connect_axis(ra, rb, axis_i):
         """ra's +axis wall to rb's -axis wall (inward normals: ra's plane
@@ -299,7 +281,6 @@ def scan_building(
         for axis, nc, rmse in results:
             print(f"  aligned {axis.name} ({nc} constraints) RMSE {rmse:.5f}")
     fitted = [scene.rooms[r.room_id] for r in fitted]
-    t0 = lap("walls", t0)
 
     # the assembly's diagnostics: every stage shows that it ran
     bc_path.write_text(json.dumps({
@@ -309,5 +290,4 @@ def scan_building(
         "optimize": [[axis.name, int(nc), float(rmse)] for axis, nc, rmse in results],
     }))
     export_all_room_xf_files(scene, out_dir / "xf")
-    lap("export", t0)
     return scene, fitted, out_dir

@@ -26,10 +26,8 @@ CPU to the XLA path; the port's kernel path runs on either device.)
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -62,7 +60,6 @@ def scan_to_room_dir(
     known_poses: Optional[np.ndarray] = None,
     *,
     device="cuda",
-    timings: Optional[Dict[str, float]] = None,
 ) -> Path:
     """Fuse a depth stream on ``device`` and write the room directory.
     Returns ``out_dir``.
@@ -73,9 +70,7 @@ def scan_to_room_dir(
     skipping the frames already fused. ``known_poses`` ((N, 4, 4)
     camera-to-world) fuses each frame at its known pose instead of
     tracking. ``use_pallas`` picks the fusion path (default:
-    ``pallas_supported`` of the configured resolution). A ``timings``
-    dict receives the host seconds of each phase (``fusion``, then those
-    of ``write_room_outputs``), each ending in a device synchronize."""
+    ``pallas_supported`` of the configured resolution)."""
     config = config or Config()
     intr = stream.intrinsics
     tsdf_cfg = config.tsdf
@@ -108,42 +103,39 @@ def scan_to_room_dir(
             init_pose=init_pose,
             device=device,
         )
-    if timings is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    with _timed(timings, "fusion", device):
-        # Poses and tracking flags stay on the device until a checkpoint
-        # or the end of the stream, so the host never waits on a frame.
-        new_poses, tracked = [], []
-        for k, frame in enumerate(stream):
-            if k < start_frame:
-                continue
-            state = kinfu_step(
-                state,
-                _to_device(frame, device),
-                intr,
-                iterations=config.icp.iterations,
-                dist_threshold=config.icp.dist_threshold,
-                angle_threshold=config.icp.angle_threshold,
-                max_weight=tsdf_cfg.max_weight,
-                z_min=config.camera.z_min,
-                use_pallas=use_pallas,
-                forced_pose=None if known_poses is None else known_poses[k],
-            )
-            new_poses.append(state.pose)
-            tracked.append(state.last_tracked)
-            if progress and not bool(state.last_tracked):
-                print(f"  frame {k}/{len(stream)} TRACKING LOST "
-                      f"(corr {int(state.last_corr)}) - frame dropped")
-            if checkpoint_every and (k + 1) % checkpoint_every == 0:
-                traj = poses + list(torch.stack(new_poses).cpu().numpy())
-                save_scan_state(state, k + 1, intr, ckpt, trajectory=np.stack(traj))
-            if progress and k % 10 == 0:
-                print(f"  frame {k}/{len(stream)} icp_rmse={float(state.last_rmse) * 1000:.2f}mm")
-        if new_poses:
-            poses += list(torch.stack(new_poses).cpu().numpy())
-            n_dropped = int((~torch.stack(tracked)).sum())
-            if progress and n_dropped:
-                print(f"  {n_dropped} frame(s) dropped to tracking loss")
+    # Poses and tracking flags stay on the device until a checkpoint
+    # or the end of the stream, so the host never waits on a frame.
+    new_poses, tracked = [], []
+    for k, frame in enumerate(stream):
+        if k < start_frame:
+            continue
+        state = kinfu_step(
+            state,
+            _to_device(frame, device),
+            intr,
+            iterations=config.icp.iterations,
+            dist_threshold=config.icp.dist_threshold,
+            angle_threshold=config.icp.angle_threshold,
+            max_weight=tsdf_cfg.max_weight,
+            z_min=config.camera.z_min,
+            use_pallas=use_pallas,
+            forced_pose=None if known_poses is None else known_poses[k],
+        )
+        new_poses.append(state.pose)
+        tracked.append(state.last_tracked)
+        if progress and not bool(state.last_tracked):
+            print(f"  frame {k}/{len(stream)} TRACKING LOST "
+                  f"(corr {int(state.last_corr)}) - frame dropped")
+        if checkpoint_every and (k + 1) % checkpoint_every == 0:
+            traj = poses + list(torch.stack(new_poses).cpu().numpy())
+            save_scan_state(state, k + 1, intr, ckpt, trajectory=np.stack(traj))
+        if progress and k % 10 == 0:
+            print(f"  frame {k}/{len(stream)} icp_rmse={float(state.last_rmse) * 1000:.2f}mm")
+    if new_poses:
+        poses += list(torch.stack(new_poses).cpu().numpy())
+        n_dropped = int((~torch.stack(tracked)).sum())
+        if progress and n_dropped:
+            print(f"  {n_dropped} frame(s) dropped to tracking loss")
 
     return write_room_outputs(
         state.volume,
@@ -154,20 +146,7 @@ def scan_to_room_dir(
         max_points_full=max_points_full,
         downsample_to=downsample_to,
         write_mesh=write_mesh,
-        timings=timings,
     )
-
-
-@contextmanager
-def _timed(timings: Optional[Dict[str, float]], name: str, device: torch.device):
-    """Add the host seconds of the block, ended by a device synchronize,
-    to ``timings[name]`` (nothing when ``timings`` is None)."""
-    t0 = time.perf_counter()
-    yield
-    if timings is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _to_device(frame: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -188,13 +167,9 @@ def write_room_outputs(
     max_points_full: int = 1 << 20,
     downsample_to: int = 1 << 16,
     write_mesh: bool = False,
-    *,
-    timings: Optional[Dict[str, float]] = None,
 ) -> Path:
     """Extract the fused surface and write the reference-layout room
     directory (clouds, planes.txt + hulls, trajectory, optional mesh).
-    ``timings`` receives the phases ``surface_points``, ``ransac`` (with
-    the planes.txt and hull files), ``mesh`` and ``writes``.
 
     With tracing on (``utils/metrics.GLOBAL_METRICS``) the export is the
     span ``export`` with the children ``export.surface``,
@@ -208,7 +183,7 @@ def write_room_outputs(
     dev = volume.data.device
 
     with GLOBAL_METRICS.span("export"):
-        with GLOBAL_METRICS.span("export.surface"), _timed(timings, "surface_points", dev):
+        with GLOBAL_METRICS.span("export.surface"):
             full_dev = extract_surface_points(volume, max_points=max_points_full)
             full = full_dev.cpu().numpy()
         GLOBAL_METRICS.count("export.surface_points", len(full))
@@ -217,10 +192,10 @@ def write_room_outputs(
             down = full[idx]
         else:
             down = full
-        with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+        with GLOBAL_METRICS.span("export.writes"):
             save_pcd(out_dir / "cloud_bin.pcd", full)
             save_pcd(out_dir / "cloud_downsampled.pcd", down)
-        with GLOBAL_METRICS.span("export.ransac"), _timed(timings, "ransac", dev):
+        with GLOBAL_METRICS.span("export.ransac"):
             det = detect_planes_to_dir(
                 torch.from_numpy(down).to(dev),
                 out_dir,
@@ -230,16 +205,16 @@ def write_room_outputs(
                 min_inliers=max(int(config.ransac.min_inlier_fraction * len(down)), 50),
             )
         GLOBAL_METRICS.count("export.planes", det.n_planes)
-        with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+        with GLOBAL_METRICS.span("export.writes"):
             np.savez(
                 out_dir / "trajectory.npz",
                 poses=np.stack(poses) if len(poses) else np.zeros((0, 4, 4), np.float32),
                 icp_rmse=icp_rmse,
             )
         if write_mesh:
-            with GLOBAL_METRICS.span("export.mesh"), _timed(timings, "mesh", dev):
+            with GLOBAL_METRICS.span("export.mesh"):
                 mesh = marching_cubes(volume)
             GLOBAL_METRICS.count("export.mesh_triangles", len(mesh.faces))
-            with GLOBAL_METRICS.span("export.writes"), _timed(timings, "writes", dev):
+            with GLOBAL_METRICS.span("export.writes"):
                 save_ply(out_dir / "mesh.ply", mesh)
     return out_dir

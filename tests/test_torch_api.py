@@ -10,7 +10,7 @@
     the port's positional parameters are the reference's, name for name,
     up to the reference's first JAX-only parameter (``interpret``); every
     parameter after that point, and every parameter only the port has
-    (``device``, ``timings``, ...), is keyword-only. The reference's
+    (``device``, ``global_blocks``, ...), is keyword-only. The reference's
     random ``key`` is the port's ``generator`` in the same place.
     ``kinfu.tsdf.integrate_core`` is the one exemption: the port's takes
     the volume's grids split out (``t_old``, ``w_old``, ``x0``), which its
