@@ -13,13 +13,16 @@ Randomness comes from a ``torch.Generator`` (seed 0 by default). It
 cannot reproduce ``jax.random``'s bits, so the two packages sample
 different hypotheses; ``ransac_round`` takes the drawn index arrays, so
 a test can hand both the same ones. Hulls and planes.txt are host numpy,
-as in the reference.
+as in the reference: each plane's hull is Andrew's monotone chain over its
+projected inliers, compiled (``ops/convex_hull.py``, one host call a
+plane) for a cloud on the card, and the Python chain (``convex_hull_2d``)
+for a cloud off it; the two give the same bytes.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,9 @@ from housescan_tpu_torch.geometry.transform import mm
 from housescan_tpu_torch.io import host
 from housescan_tpu_torch.io.pcd import save_pcd
 from housescan_tpu_torch.io.planes_txt import save_planes_txt
+from housescan_tpu_torch.ops import cuda_lib
+from housescan_tpu_torch.ops.convex_hull import convex_hull_compiled, sorted_unique
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 K_LOCAL = 96  # candidates per local hypothesis
 
@@ -166,8 +172,30 @@ def detect_planes(
 
 
 def convex_hull_2d(points_2d: np.ndarray) -> np.ndarray:
-    """Andrew's monotone chain convex hull (host numpy)."""
+    """Andrew's monotone chain convex hull (host numpy), as a Python loop."""
+    return unique_hull(points_2d)[1]
+
+
+def unique_hull(points_2d, compiled: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The unique float64 rows of ``points_2d`` (``np.unique``, sorted by
+    x, then y) and their convex hull: by the Python chain
+    (``monotone_chain``, counted in ``plain_counts["convex_hull"]``), or
+    with ``compiled`` by the compiled one (``ops/convex_hull.py``, its
+    faster dedupe ``sorted_unique``, ``launch_counts["convex_hull"]``),
+    which gives the same bytes."""
+    if compiled:
+        pts = sorted_unique(points_2d)
+        cuda_lib.launch_counts["convex_hull"] += 1
+        return pts, convex_hull_compiled(pts)
     pts = np.unique(np.asarray(points_2d, np.float64), axis=0)
+    cuda_lib.plain_counts["convex_hull"] += 1
+    return pts, monotone_chain(pts)
+
+
+def monotone_chain(pts: np.ndarray) -> np.ndarray:
+    """The Python chain over unique float64 rows ``pts``: the strict hull's
+    vertices, the lower chain then the upper; two rows or fewer come back
+    as they are."""
     if len(pts) <= 2:
         return pts
     pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
@@ -192,12 +220,19 @@ def plane_hulls(points, detected: DetectedPlanes) -> List[np.ndarray]:
     """Per-plane 3D boundary polygons (the cloud_plane_hull<k>.pcd
     payloads): project the inliers onto the plane, take the 2D convex
     hull in the plane's basis and lift it back. ``points`` and the
-    fields of ``detected`` may be tensors or numpy arrays."""
+    fields of ``detected`` may be tensors or numpy arrays. For CUDA
+    ``points`` each hull is one call of the compiled chain
+    (``ops/convex_hull.py``, ``launch_counts["convex_hull"]``); for numpy
+    or a CPU tensor the Python chain (``plain_counts["convex_hull"]``).
+    Counts ``export.hull_points``, the unique projected points the chains
+    took."""
+    compiled = isinstance(points, torch.Tensor) and points.is_cuda
     points = host(points)
     normals = host(detected.normals)
     ds = host(detected.ds)
     inlier_of = host(detected.inlier_of)
     hulls = []
+    n_unique = 0
     for k in range(int(detected.n_planes)):
         n = normals[k]
         d = ds[k]
@@ -211,11 +246,13 @@ def plane_hulls(points, detected: DetectedPlanes) -> List[np.ndarray]:
         e2 = np.cross(n, e1)
         proj = members - np.outer(members @ n - d, n)  # onto the plane
         uv = np.stack([proj @ e1, proj @ e2], axis=1)
-        hull_uv = convex_hull_2d(uv)
+        pts, hull_uv = unique_hull(uv, compiled)
+        n_unique += len(pts)
         # exact lift: (e1, e2, n) is orthonormal and every projected
         # point satisfies p . n = d
         hull3d = d * n + hull_uv[:, :1] * e1 + hull_uv[:, 1:2] * e2
         hulls.append(hull3d.astype(np.float32))
+    GLOBAL_METRICS.count("export.hull_points", n_unique)
     return hulls
 
 
@@ -236,7 +273,8 @@ def detect_planes_to_dir(
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     save_planes_txt(out_dir / "planes.txt", PlaneEq(det.normals[:npl], det.ds[:npl]))
-    hulls = plane_hulls(points, det)
+    with GLOBAL_METRICS.span("export.ransac.hulls"):
+        hulls = plane_hulls(points, det)
     for k in range(npl):
         save_pcd(out_dir / f"cloud_plane_hull{k}.pcd", hulls[k])
     return det

@@ -173,10 +173,11 @@ def write_room_outputs(
 
     With tracing on (``utils/metrics.GLOBAL_METRICS``) the export is the
     span ``export`` with the children ``export.surface``,
-    ``export.ransac`` (the planes, the hulls and planes.txt),
-    ``export.mesh`` and ``export.writes``, and counts
-    ``export.surface_points``, ``export.planes`` and
-    ``export.mesh_triangles`` from values it already holds."""
+    ``export.ransac`` (the planes, the hulls and planes.txt; its child
+    ``export.ransac.hulls`` is the hulls alone), ``export.mesh`` and
+    ``export.writes``, and counts ``export.surface_points``,
+    ``export.planes``, ``export.hull_points`` (``kinfu/ransac.plane_hulls``)
+    and ``export.mesh_triangles`` from values it already holds."""
     config = config or Config()
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

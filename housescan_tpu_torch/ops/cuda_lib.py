@@ -13,8 +13,15 @@ as on the CPU: the kernels then reproduce their plain PyTorch versions'
 arithmetic operation for operation, and the remaining differences come
 from summation order alone.
 
+The library also holds one host-only routine, ``hs_convex_hull_2d``
+(``csrc/convex_hull.cu``): the scan's plane hulls, a sequential chain over
+numpy's float64 points, which the host compiler builds from the same
+source (``ops/convex_hull.py``).
+
 ``launch_counts`` counts, per kernel, the wrapper calls that launched it;
-``plain_counts`` the calls that ran the plain version instead.
+``plain_counts`` the calls that ran the plain version instead. The host
+routine is counted likewise, under ``convex_hull``: calls of the compiled
+chain and of the Python chain.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6",
-           "planes_extract", "tsdf_dense", "chunk_select", "marching_tets")
+           "planes_extract", "tsdf_dense", "chunk_select", "marching_tets", "convex_hull")
 # The kernels each path launches: the kernel path of kinfu_step
 # (use_pallas=True), its XLA path (use_pallas=False), and the dense path
 # (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas). A
@@ -113,7 +120,12 @@ _SIGNATURES = {
     "hs_marching_tets_count": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     # vol, layout, nx, ny, nz, slab, params, scratch, cap, out, stream
     "hs_marching_tets_emit": [_P, _I, _I, _I, _I, _I, _P, _P, _L, _P, _P],
+    # host-only: points (n, 2) float64, n, out indices, stack; returns the
+    # number of indices written
+    "hs_convex_hull_2d": [_P, _L, _P, _P],
 }
+# Return types other than the status int of a launcher.
+_RESTYPES = {"hs_convex_hull_2d": _L}
 # Each kernel's occupancy query (arg, out): the device kernels it reports,
 # in order, at the launch configuration of its wrapper.
 OCCUPANCY = {
@@ -195,7 +207,7 @@ def load():
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -30,7 +30,10 @@ classes too (the fit sums in float64 and rounds once; K8's bilinear
 repeats its plain version's operation order), K8 at R = 128, 256 and 512,
 on SKIP and FREE columns and with a surface on a chunk boundary. K10 (the
 mesh) bit-identical to the plain marching tetrahedra on the card: the
-same vertex bytes, faces and count, on every layout, slab and cap. At
+same vertex bytes, faces and count, on every layout, slab and cap. The
+plane hulls' compiled chain byte for byte the Python chain on every case
+of ``tests/hull_cases.py``, and on RANSAC's planes of a cloud on the
+card. At
 room-vga-1024 (1024^3 over 6 m, float32: 2^31 cells), one 3-frame scan
 of the room-scan traffic through `portbench/drivers/scan.py` holds every
 number of its cell's comparison with the plain reference
@@ -45,6 +48,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hull_cases import CASES as HULL_CASES
+from hull_cases import room_cloud
 
 from housescan_tpu_torch.kinfu import maps as mp
 from housescan_tpu_torch.kinfu.camera import Intrinsics
@@ -58,6 +63,10 @@ from housescan_tpu_torch.ops.chunk_select import CLS_FREE as WL_FREE
 from housescan_tpu_torch.ops.chunk_select import CLS_REFINE, build_worklist
 from housescan_tpu_torch.kinfu.icp import DAMPINGS
 from housescan_tpu_torch.kinfu.marching_cubes import marching_cubes, marching_cubes_plain
+from housescan_tpu_torch.kinfu.ransac import convex_hull_2d, detect_planes, plane_hulls, unique_hull
+from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+from housescan_tpu_torch.capture.replay import DepthStream
+from housescan_tpu_torch.config import Config, TsdfConfig
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume
 from housescan_tpu_torch.ops.icp_cuda import (
     BAND_H,
@@ -1029,6 +1038,79 @@ def test_marching_tets_waits_on_the_card_for_the_count_and_the_copy(cuda):
     syncs = [(Path(w.filename).name, w.lineno) for w in caught
              if "called a synchronizing" in str(w.message)]
     assert len(syncs) == 2 and all(f == "marching_tets.py" for f, _ in syncs), syncs
+
+
+# --- the plane hulls' compiled chain ----------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HULL_CASES))
+def test_convex_hull_compiled_byte_identical(cuda, case):
+    """The compiled chain against the Python chain on each shared case
+    (``tests/hull_cases.py``): one compiled call, its dedupe gives
+    ``np.unique``'s bytes, and its hull the Python chain's rows, dtype and
+    shape, byte for byte."""
+    x = HULL_CASES[case]()
+    launched = cuda_lib.launch_counts["convex_hull"]
+    pts, got = unique_hull(x, compiled=True)
+    assert cuda_lib.launch_counts["convex_hull"] == launched + 1
+    unique = np.unique(np.asarray(x, np.float64), axis=0)
+    assert pts.shape == unique.shape and pts.tobytes() == unique.tobytes()
+    want = convex_hull_2d(x)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.gpu
+def test_plane_hulls_of_a_cloud_on_the_card_equal_the_python_chain(cuda):
+    """RANSAC's planes of a room cloud on the card: ``plane_hulls`` of the
+    CUDA cloud makes one compiled chain call a plane and no Python one, and
+    its hulls are those of the same cloud as numpy (the Python chain), byte
+    for byte."""
+    cloud = room_cloud()
+    points = torch.from_numpy(cloud).to(cuda)
+    det = detect_planes(points, min_inliers=200)
+    n_planes = int(det.n_planes)
+    assert n_planes == 4
+    launched, plain = cuda_lib.launch_counts["convex_hull"], cuda_lib.plain_counts["convex_hull"]
+    got = plane_hulls(points, det)
+    assert cuda_lib.launch_counts["convex_hull"] - launched == n_planes
+    assert cuda_lib.plain_counts["convex_hull"] == plain
+    want = plane_hulls(cloud, det)
+    assert cuda_lib.plain_counts["convex_hull"] - plain == n_planes
+    assert len(got) == len(want) == n_planes
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and len(g) >= 4
+        assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.gpu
+def test_scan_on_the_card_takes_the_compiled_hulls(cuda, tmp_path):
+    """A traced 4-frame 128^3 scan on the card: one compiled chain call a
+    plane of its planes.txt and no Python one, the span
+    ``export.ransac.hulls`` inside ``export.ransac``, and
+    ``export.hull_points`` counted once, at most the downsampled points."""
+    poses, frames = _stream(QQVGA, 4, np.pi / 64, cuda)
+    config = Config(tsdf=TsdfConfig(resolution=128, size_m=3.0, trunc_dist=0.06))
+    cuda_lib.reset_counts()
+    GLOBAL_METRICS.drain()
+    GLOBAL_METRICS.enable()
+    try:
+        room = scan_to_room_dir(DepthStream(frames=frames.cpu().numpy(), intrinsics=QQVGA),
+                                tmp_path / "room", config=config, init_pose=poses[0],
+                                downsample_to=4096, device=cuda)
+    finally:
+        GLOBAL_METRICS.disable()
+    rec = GLOBAL_METRICS.drain()
+    n_planes = len((room / "planes.txt").read_text().split()) // 4
+    assert n_planes >= 2
+    assert cuda_lib.launch_counts["convex_hull"] == n_planes
+    assert cuda_lib.plain_counts["convex_hull"] == 0
+    spans = rec["spans"]
+    hulls = [s for s in spans if s.name == "export.ransac.hulls"]
+    assert len(hulls) == 1 and spans[hulls[0].parent].name == "export.ransac"
+    counts = [c.value for c in rec["counters"] if c.name == "export.hull_points"]
+    assert len(counts) == 1 and 4 * n_planes <= counts[0] <= 4096
 
 
 @pytest.mark.gpu

@@ -48,6 +48,9 @@ from housescan_tpu_torch.kinfu.scan_checkpoint import (
 )
 from housescan_tpu_torch.kinfu.synthetic import furnished_room, orbit_poses, render_depth_stream
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, extract_surface_points
+from housescan_tpu_torch.ops.convex_hull import sorted_unique
+from hull_cases import CASES as HULL_CASES
+from hull_cases import room_cloud
 
 INTR = Intrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
 JINTR = JIntrinsics(*INTR)
@@ -298,6 +301,74 @@ def test_hulls_and_planes_txt_byte_identical(cloud, tmp_path):
         save_pcd(out / f"cloud_plane_hull{k}.pcd", hulls[k])
     for name in ["planes.txt"] + [f"cloud_plane_hull{k}.pcd" for k in range(npl)]:
         assert (out / name).read_bytes() == (tmp_path / "ref" / name).read_bytes(), name
+
+
+# A few of the shared cases' hulls in full, the signs of their zeros
+# included.
+HULL_EXACT = {
+    "three_collinear": [[0.0, 0.0], [2.0, 2.0]],
+    "collinear_runs": [[0.0, 0.0], [10.0, 0.0], [10.0, 10.0], [0.0, 10.0]],
+    "diagonal_hull": [[0.0, 8.0], [8.0, 0.0], [16.0, 8.0], [8.0, 16.0]],
+    "lone_negative_zeros": [[-1.0, 0.5], [-0.0, -0.0], [3.0, -0.0], [2.0, 3.0], [-0.0, 2.0]],
+}
+
+
+@pytest.mark.parametrize("case", list(HULL_CASES))
+def test_python_chain_pinned_on_the_hull_cases(case):
+    """The Python chain's hull of each shared case (``tests/hull_cases.py``)
+    is the reference's, byte for byte, with its dtype and shape; the card
+    tests hold the compiled chain to the Python chain on the same cases,
+    and the compiled path's dedupe (``ops/convex_hull.sorted_unique``,
+    numpy) gives ``np.unique``'s bytes on them here."""
+    x = HULL_CASES[case]()
+    got = ransac.convex_hull_2d(x)
+    want = j_ransac.convex_hull_2d(x)
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    if case in HULL_EXACT:
+        assert got.tobytes() == np.array(HULL_EXACT[case]).tobytes()
+    unique = np.unique(np.asarray(x, np.float64), axis=0)
+    pts = sorted_unique(x)
+    assert pts.shape == unique.shape and pts.tobytes() == unique.tobytes()
+
+
+@pytest.fixture(scope="module")
+def room_planes():
+    cloud = room_cloud()
+    return cloud, ransac.detect_planes(torch.from_numpy(cloud), min_inliers=200)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "cpu_tensor"])
+def test_plane_hulls_off_the_card_take_the_python_chain(room_planes, kind, monkeypatch):
+    """A numpy or CPU-tensor cloud takes the Python chain, one call a
+    plane (``plain_counts``), and never loads the kernel library; traced,
+    ``plane_hulls`` counts ``export.hull_points`` once: the unique rows
+    the chains took."""
+    from housescan_tpu_torch.ops import cuda_lib
+    from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    took = []
+    chain = ransac.monotone_chain
+    monkeypatch.setattr(cuda_lib, "load", no_library)
+    monkeypatch.setattr(ransac, "monotone_chain", lambda pts: took.append(len(pts)) or chain(pts))
+    cloud, det = room_planes
+    n_planes = int(det.n_planes)
+    assert n_planes == 4
+    cuda_lib.reset_counts()
+    GLOBAL_METRICS.drain()
+    GLOBAL_METRICS.enable()
+    try:
+        hulls = ransac.plane_hulls(cloud if kind == "numpy" else torch.from_numpy(cloud), det)
+    finally:
+        GLOBAL_METRICS.disable()
+    rec = GLOBAL_METRICS.drain()
+    assert cuda_lib.plain_counts["convex_hull"] == n_planes == len(took)
+    assert cuda_lib.launch_counts["convex_hull"] == 0
+    assert [(c.name, c.value) for c in rec["counters"]] == [("export.hull_points", sum(took))]
+    assert len(hulls) == n_planes and all(len(h) >= 4 for h in hulls)
 
 
 # --- marching tetrahedra --------------------------------------------------

@@ -222,12 +222,17 @@ def test_export_spans_nest_and_counters_equal_what_it_wrote(tmp_path, traced):
     spans = rec["spans"]
     assert spans[0].name == "export" and spans[0].parent == -1
     assert {s.name for s in spans[1:]} == {"export.surface", "export.ransac", "export.mesh",
-                                           "export.writes"}
+                                           "export.writes", "export.ransac.hulls"}
     assert [s.name for s in spans].count("export.writes") == 3
+    names = [s.name for s in spans]
+    assert names.count("export.ransac.hulls") == 1
     for s in spans[1:]:
-        assert s.parent == 0 and s.frame == spans[0].frame
-        assert spans[0].start_ns <= s.start_ns <= s.end_ns <= spans[0].end_ns
+        outer = spans[s.parent]
+        assert s.frame == spans[0].frame
+        assert outer.name == ("export.ransac" if s.name == "export.ransac.hulls" else "export")
+        assert outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
     counts = {c.name: c.value for c in rec["counters"]}
+    assert 0 < counts.pop("export.hull_points") <= 4000  # unique projected inliers
     n_points = int((room / "cloud_bin.pcd").read_bytes().split(b"POINTS ")[1].split()[0])
     n_planes = len((room / "planes.txt").read_text().split()) // 4
     n_faces = int((room / "mesh.ply").read_bytes().split(b"element face ")[1].split()[0])
