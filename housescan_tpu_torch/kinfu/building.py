@@ -13,6 +13,15 @@
   * then the assembly: corners a room, ONE batched cuboid fit for every
     room with 8 corners (``parallel.fit_cuboids_sharded`` on a mesh),
     walls chained, positions optimised, the scene's .xf exported.
+
+With tracing on (``utils/metrics.GLOBAL_METRICS``) the call is the span
+``building``: ``building.room`` a scanned room (its fusion steps and
+export nest inside), then ``building.assembly`` with the children
+``.load``, ``.fit``, ``.arrange``, ``.optimize`` and ``.xf``; it counts
+``building.rooms``, ``building.fitted_rooms``,
+``building.wall_connections`` and ``building.fit_iterations`` (the
+longest instance of each Nelder-Mead stage, summed over the two; a
+device value, read when drained), adding no host synchronisation.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from housescan_tpu_torch.config import Config
 from housescan_tpu_torch.kinfu.scan import scan_to_room_dir, write_room_outputs
 from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state, save_scan_state
 from housescan_tpu_torch.parallel.mesh import Mesh
+from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 
 @dataclass
@@ -163,6 +173,53 @@ def scan_building(
     pair of neighbours along X and Z, and ``floors`` (a count or the
     rooms of each floor) stacks floors on Y (upper floors at more
     negative Y: world up is -Y), chaining ceilings to the floors above."""
+    config = config or Config()
+    device = torch.device(device)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bc_path = out_dir / "building_checkpoint.json"
+    done: List[str] = []
+    if resume and bc_path.exists():
+        done = json.loads(bc_path.read_text()).get("rooms_done", [])
+        if progress and done:
+            print(f"building resume: rooms already scanned: {done}")
+
+    use_sharded = mesh is not None and config.tsdf.resolution >= sharded_min_resolution
+    with GLOBAL_METRICS.span("building"):
+        room_dirs = []
+        n_scanned = 0
+        for room in rooms:
+            rd = out_dir / room.name
+            room_dirs.append(rd)
+            if room.name in done and (rd / "planes.txt").exists():
+                continue
+            if progress:
+                kind = "sharded" if use_sharded else "single-device"
+                print(f"scanning {room.name} ({len(room.stream)} frames, {kind})")
+            with GLOBAL_METRICS.span("building.room"):
+                if use_sharded:
+                    _scan_room_sharded(room, rd, mesh, config, progress=progress,
+                                       write_mesh=write_mesh, checkpoint_every=checkpoint_every,
+                                       resume=resume)
+                else:
+                    scan_to_room_dir(room.stream, rd, config=config, init_pose=room.init_pose,
+                                     write_mesh=write_mesh, progress=progress,
+                                     checkpoint_every=checkpoint_every, resume=resume,
+                                     known_poses=room.known_poses, device=device)
+                done.append(room.name)
+                bc_path.write_text(json.dumps({"rooms_done": done}))
+            n_scanned += 1
+        GLOBAL_METRICS.count("building.rooms", n_scanned)
+        with GLOBAL_METRICS.span("building.assembly"):
+            scene, fitted = _assemble(rooms, room_dirs, done, bc_path, config, mesh, progress,
+                                      gap, layout, floors, device)
+    return scene, fitted, out_dir
+
+
+def _assemble(rooms, room_dirs, done, bc_path, config, mesh, progress, gap, layout, floors,
+              device):
+    """``scan_building``'s assembly of the scanned room directories:
+    returns ``(scene, fitted_rooms)``."""
     from housescan_tpu_torch.rooms import (
         Axis,
         Scene,
@@ -177,67 +234,40 @@ def scan_building(
     )
     from housescan_tpu_torch.rooms.cuboid import apply_cuboid_fit
     from housescan_tpu_torch.rooms.walls import best_axis
-    from housescan_tpu_torch.solvers.cuboid_fit import fit_cuboid_batch
-
-    config = config or Config()
-    device = torch.device(device)
-    out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    bc_path = out_dir / "building_checkpoint.json"
-    done: List[str] = []
-    if resume and bc_path.exists():
-        done = json.loads(bc_path.read_text()).get("rooms_done", [])
-        if progress and done:
-            print(f"building resume: rooms already scanned: {done}")
-
-    use_sharded = mesh is not None and config.tsdf.resolution >= sharded_min_resolution
-    room_dirs = []
-    for room in rooms:
-        rd = out_dir / room.name
-        room_dirs.append(rd)
-        if room.name in done and (rd / "planes.txt").exists():
-            continue
-        if progress:
-            kind = "sharded" if use_sharded else "single-device"
-            print(f"scanning {room.name} ({len(room.stream)} frames, {kind})")
-        if use_sharded:
-            _scan_room_sharded(room, rd, mesh, config, progress=progress, write_mesh=write_mesh,
-                               checkpoint_every=checkpoint_every, resume=resume)
-        else:
-            scan_to_room_dir(room.stream, rd, config=config, init_pose=room.init_pose,
-                             write_mesh=write_mesh, progress=progress,
-                             checkpoint_every=checkpoint_every, resume=resume,
-                             known_poses=room.known_poses, device=device)
-        done.append(room.name)
-        bc_path.write_text(json.dumps({"rooms_done": done}))
+    from housescan_tpu_torch.solvers.cuboid_fit import fit_cuboid_batch_counted
 
     scene = Scene(device=str(device))
-    loaded = []
-    for rd in room_dirs:
-        r = suggest_corners(scene, load_room(scene, rd))
-        # more than 8 candidates (furniture planes): the 8 at the cloud's extremes
-        loaded.append(adopt_bbox_corners(scene, r))
+    with GLOBAL_METRICS.span("building.assembly.load"):
+        loaded = []
+        for rd in room_dirs:
+            r = suggest_corners(scene, load_room(scene, rd))
+            # more than 8 candidates (furniture planes): the 8 at the cloud's extremes
+            loaded.append(adopt_bbox_corners(scene, r))
 
     # one batched cuboid fit for every room with 8 corners
     fit_rmse: dict = {}
     fit_idx = [i for i, r in enumerate(loaded) if len(r.corners) >= 8]
     fitted = list(loaded)
-    if fit_idx:
-        batch = np.stack([np.stack([c for _, c in loaded[i].corners[:8]]) for i in fit_idx])
-        batch = batch.astype(np.float32)
-        if mesh is not None:
-            from housescan_tpu_torch.parallel.rooms_batch import fit_cuboids_sharded
+    with GLOBAL_METRICS.span("building.assembly.fit"):
+        if fit_idx:
+            batch = np.stack([np.stack([c for _, c in loaded[i].corners[:8]]) for i in fit_idx])
+            batch = batch.astype(np.float32)
+            if mesh is not None:
+                from housescan_tpu_torch.parallel.rooms_batch import fit_cuboids_sharded
 
-            fits = fit_cuboids_sharded(batch, mesh)
-        else:
-            fits = fit_cuboid_batch(batch, device=device)
-        params = fits.params.cpu().numpy()
-        errors = fits.error.cpu().numpy()
-        for row, i in enumerate(fit_idx):
-            fitted[i] = apply_cuboid_fit(scene, loaded[i], params[row])
-            fit_rmse[rooms[i].name] = float(np.sqrt(errors[row]))
-            if progress:
-                print(f"  {rooms[i].name}: cuboid RMSE {fit_rmse[rooms[i].name] * 1000:.2f} mm")
+                fits = fit_cuboids_sharded(batch, mesh)
+            else:
+                fits, (n1, n2) = fit_cuboid_batch_counted(batch, device=device)
+                if GLOBAL_METRICS.tracing:
+                    GLOBAL_METRICS.count("building.fit_iterations", n1.max() + n2.max())
+            params = fits.params.cpu().numpy()
+            errors = fits.error.cpu().numpy()
+            for row, i in enumerate(fit_idx):
+                fitted[i] = apply_cuboid_fit(scene, loaded[i], params[row])
+                fit_rmse[rooms[i].name] = float(np.sqrt(errors[row]))
+                if progress:
+                    print(f"  {rooms[i].name}: cuboid RMSE {fit_rmse[rooms[i].name] * 1000:.2f} mm")
+    GLOBAL_METRICS.count("building.fitted_rooms", len(fit_idx))
 
     def connect_axis(ra, rb, axis_i):
         """ra's +axis wall to rb's -axis wall (inward normals: ra's plane
@@ -254,40 +284,44 @@ def scan_building(
         pb = max(cb, key=lambda p: p.normal[axis_i])
         connect_walls(scene, pa.plane_id, pb.plane_id, WallRelation.opposite(gap))
 
-    if layout == "grid":
-        spacing = config.rooms.grid_spacing
-        by_slot = {}
-        for i, (gx, fl, gz) in enumerate(cantor_slots_3d(len(fitted), floors)):
-            offset = np.array([gx * spacing, -fl * spacing, gz * spacing], np.float32)
-            moved = translate_room(scene.rooms[fitted[i].room_id], offset, device=device)
-            scene.update_room(moved)
-            fitted[i] = moved
-            by_slot[(gx, fl, gz)] = i
-        for (gx, fl, gz), i in by_slot.items():
-            for dx, dz, axis_i in ((1, 0, 0), (0, 1, 2)):
-                j = by_slot.get((gx + dx, fl, gz + dz))
+    with GLOBAL_METRICS.span("building.assembly.arrange"):
+        if layout == "grid":
+            spacing = config.rooms.grid_spacing
+            by_slot = {}
+            for i, (gx, fl, gz) in enumerate(cantor_slots_3d(len(fitted), floors)):
+                offset = np.array([gx * spacing, -fl * spacing, gz * spacing], np.float32)
+                moved = translate_room(scene.rooms[fitted[i].room_id], offset, device=device)
+                scene.update_room(moved)
+                fitted[i] = moved
+                by_slot[(gx, fl, gz)] = i
+            for (gx, fl, gz), i in by_slot.items():
+                for dx, dz, axis_i in ((1, 0, 0), (0, 1, 2)):
+                    j = by_slot.get((gx + dx, fl, gz + dz))
+                    if j is not None:
+                        connect_axis(fitted[i], fitted[j], axis_i)
+                # the room upstairs: its floor (the +Y face, facing down) meets
+                # this room's ceiling
+                j = by_slot.get((gx, fl + 1, gz))
                 if j is not None:
-                    connect_axis(fitted[i], fitted[j], axis_i)
-            # the room upstairs: its floor (the +Y face, facing down) meets
-            # this room's ceiling
-            j = by_slot.get((gx, fl + 1, gz))
-            if j is not None:
-                connect_axis(fitted[j], fitted[i], 1)
-    else:
-        for a in range(len(fitted) - 1):
-            connect_axis(fitted[a], fitted[a + 1], 0)
-    results = optimize_room_positions(scene)
+                    connect_axis(fitted[j], fitted[i], 1)
+        else:
+            for a in range(len(fitted) - 1):
+                connect_axis(fitted[a], fitted[a + 1], 0)
+    GLOBAL_METRICS.count("building.wall_connections", len(scene.connected_walls))
+    with GLOBAL_METRICS.span("building.assembly.optimize"):
+        results = optimize_room_positions(scene)
     if progress:
         for axis, nc, rmse in results:
             print(f"  aligned {axis.name} ({nc} constraints) RMSE {rmse:.5f}")
     fitted = [scene.rooms[r.room_id] for r in fitted]
 
-    # the assembly's diagnostics: every stage shows that it ran
-    bc_path.write_text(json.dumps({
-        "rooms_done": done,
-        "fit_rmse": fit_rmse,
-        "n_wall_connections": len(scene.connected_walls),
-        "optimize": [[axis.name, int(nc), float(rmse)] for axis, nc, rmse in results],
-    }))
-    export_all_room_xf_files(scene, out_dir / "xf")
-    return scene, fitted, out_dir
+    with GLOBAL_METRICS.span("building.assembly.xf"):
+        # the assembly's diagnostics: every stage shows that it ran
+        bc_path.write_text(json.dumps({
+            "rooms_done": done,
+            "fit_rmse": fit_rmse,
+            "n_wall_connections": len(scene.connected_walls),
+            "optimize": [[axis.name, int(nc), float(rmse)] for axis, nc, rmse in results],
+        }))
+        export_all_room_xf_files(scene, bc_path.parent / "xf")
+    return scene, fitted

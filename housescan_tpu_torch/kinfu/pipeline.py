@@ -143,7 +143,11 @@ def track_frame(raw_depth, intr: Intrinsics, state, start, voxel_size, icp, leve
     with GLOBAL_METRICS.span("track"):
         dev = raw_depth.device
         if forced_pose is not None:
-            return Track(torch.as_tensor(forced_pose, dtype=torch.float32).to(dev),
+            pose = torch.as_tensor(forced_pose, dtype=torch.float32)
+            if pose.device.type == "cpu" and dev.type == "cuda":
+                # from pinned memory: a pageable upload would wait for the card
+                pose = pose.pin_memory()
+            return Track(pose.to(dev, non_blocking=True),
                          torch.ones((), dtype=torch.bool, device=dev),
                          torch.zeros((), dtype=torch.float32, device=dev),
                          torch.zeros((), dtype=torch.int32, device=dev))

@@ -43,13 +43,20 @@ from housescan_tpu_torch.kinfu.scan_checkpoint import load_scan_state, save_scan
 from housescan_tpu_torch.kinfu.tsdf import TsdfVolume, extract_surface_points
 from housescan_tpu_torch.utils.metrics import GLOBAL_METRICS
 
+# The full-resolution cloud's cap: PCL KinFu's cloud buffer
+# (``TsdfVolume::DEFAULT_CLOUD_BUFFER_SIZE``, 10,000,000 points). The cap
+# keeps the first points in raster order (x slowest), so a cap below a
+# room's surface drops the room's +x end: a fully scanned 2.7 m room at
+# 512^3 has over 1,048,576 surface voxels (the reference's 1 << 20).
+MAX_SURFACE_POINTS = 10_000_000
+
 
 def scan_to_room_dir(
     stream: DepthStream,
     out_dir: Union[str, Path],
     config: Optional[Config] = None,
     init_pose: Optional[np.ndarray] = None,
-    max_points_full: int = 1 << 20,
+    max_points_full: int = MAX_SURFACE_POINTS,
     downsample_to: int = 1 << 16,
     write_mesh: bool = False,
     use_pallas: Optional[bool] = None,
@@ -164,7 +171,7 @@ def write_room_outputs(
     out_dir: Union[str, Path],
     config: Optional[Config] = None,
     icp_rmse: float = 0.0,
-    max_points_full: int = 1 << 20,
+    max_points_full: int = MAX_SURFACE_POINTS,
     downsample_to: int = 1 << 16,
     write_mesh: bool = False,
 ) -> Path:

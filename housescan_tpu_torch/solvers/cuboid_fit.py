@@ -55,10 +55,24 @@ _QUAT_SEEDS = np.array(
 )
 
 
+_SIGNS_ON: dict = {}
+
+
+def _corner_signs(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``_CORNER_SIGNS`` on ``device``, copied there once: a host array
+    copied at every objective call would make the host wait for the card
+    twice a Nelder-Mead iteration."""
+    signs = _SIGNS_ON.get((dtype, device))
+    if signs is None:
+        signs = _SIGNS_ON[(dtype, device)] = torch.as_tensor(_CORNER_SIGNS, dtype=dtype,
+                                                             device=device)
+    return signs
+
+
 def cuboid_from_params(params: torch.Tensor) -> torch.Tensor:
     """(..., 10) params -> (..., 8, 3) corners: spawned at the origin,
     rotated by the quaternion, moved to the center."""
-    signs = torch.as_tensor(_CORNER_SIGNS, dtype=params.dtype, device=params.device)
+    signs = _corner_signs(params.dtype, params.device)
     local = signs * (params[..., None, 3:6] / 2.0)
     return mm(local, quat_rot_mat(params[..., 6:10])) + params[..., None, 0:3]
 
@@ -102,8 +116,9 @@ class CuboidFit(NamedTuple):
     error: torch.Tensor  # (...) final objective (sum of squared distances)
 
 
-def _from_center(points: torch.Tensor, tol: float, max_iter: int, n_starts: int) -> CuboidFit:
-    """Stage 1 for (R, 8, 3) corner sets: R x n_starts instances."""
+def _from_center(points: torch.Tensor, tol: float, max_iter: int, n_starts: int):
+    """Stage 1 for (R, 8, 3) corner sets: R x n_starts instances. Returns
+    the fit and each instance's iterations ((R * n_starts,))."""
     r = points.shape[0]
     center = points.mean(dim=1)
     a = guess_dims(points)[:, 0]
@@ -122,19 +137,20 @@ def _from_center(points: torch.Tensor, tol: float, max_iter: int, n_starts: int)
     rows = torch.arange(r, device=points.device)
     x = res.x.view(r, n_starts, 7)[rows, best]
     return CuboidFit(torch.cat([center, x], dim=-1), res.n_iter.view(r, n_starts).sum(dim=1),
-                     fun[rows, best])
+                     fun[rows, best]), res.n_iter
 
 
-def _two_stage(points: torch.Tensor, tol: float, max_iter: int) -> CuboidFit:
-    """Both stages for (R, 8, 3) corner sets."""
-    stage1 = _from_center(points, tol, max_iter, len(_QUAT_SEEDS))
+def _two_stage(points: torch.Tensor, tol: float, max_iter: int):
+    """Both stages for (R, 8, 3) corner sets: the fit, and each stage's
+    iterations by instance ((R * 8,), (R,))."""
+    stage1, n1 = _from_center(points, tol, max_iter, len(_QUAT_SEEDS))
     a = guess_dims(points)[:, 0:1]
     ones = torch.ones_like(a)
     steps = torch.cat([0.01 * ones.expand(-1, 3), a.expand(-1, 3) / 10.0, 0.1 * ones.expand(-1, 4)],
                       dim=-1)
     res = nelder_mead_batch(lambda x: errfun_closest(points[:, None], x), stage1.params, steps,
                             tol=tol, max_iter=max_iter)
-    return CuboidFit(res.x, stage1.n_steps + res.n_iter, res.fun)
+    return CuboidFit(res.x, stage1.n_steps + res.n_iter, res.fun), (n1, res.n_iter)
 
 
 def fit_cuboid_from_center(
@@ -142,7 +158,7 @@ def fit_cuboid_from_center(
 ) -> CuboidFit:
     """Stage 1 alone: center fixed at the point mean, 7 free params,
     multi-start over quaternion seeds."""
-    fit = _from_center(f32(points, device)[None], tol, max_iter, n_starts)
+    fit = _from_center(f32(points, device)[None], tol, max_iter, n_starts)[0]
     return CuboidFit(*(t[0] for t in fit))
 
 
@@ -153,7 +169,7 @@ def fit_cuboid_from_center_first(
     free. ``polish_bfgs=True`` adds ``refine_bfgs``, kept only where it
     improves the nearest-corner objective."""
     pts = f32(points, device)
-    fit = CuboidFit(*(t[0] for t in _two_stage(pts[None], tol, max_iter)))
+    fit = CuboidFit(*(t[0] for t in _two_stage(pts[None], tol, max_iter)[0]))
     if polish_bfgs:
         x, err = refine_bfgs(pts, fit.params, device=pts.device)
         fit = CuboidFit(x, fit.n_steps, err)
@@ -176,6 +192,14 @@ def fit_cuboid_batch(points_batch, tol: float = 1e-8, max_iter: int = 2000,
                      *, device="cuda") -> CuboidFit:
     """Fit cuboids to a (B, 8, 3) batch of corner sets in one device
     loop (B x 8 instances in stage 1, B in stage 2)."""
+    return fit_cuboid_batch_counted(points_batch, tol, max_iter, device=device)[0]
+
+
+def fit_cuboid_batch_counted(points_batch, tol: float = 1e-8, max_iter: int = 2000,
+                             *, device="cuda") -> Tuple[CuboidFit, Tuple[torch.Tensor, torch.Tensor]]:
+    """``fit_cuboid_batch`` and the iterations of each Nelder-Mead
+    instance, by stage: ((B * 8,) int32, (B,) int32) on the device, unread
+    (the loop of a stage runs as long as its longest instance)."""
     return _two_stage(f32(points_batch, device), tol, max_iter)
 
 

@@ -1915,3 +1915,92 @@ def test_raycast_kernel_bit_identical_on_the_room_scan_planes(cuda):
     torch.cuda.synchronize()
     assert torch.equal(k, q)
     assert int((q[0] > 0).sum()) > 20000
+
+
+@pytest.mark.gpu
+def test_house_on_floors_matches_the_reference(cuda):
+    """A 6-room house on floors of 3, 2 and 1 (the house-vga-512 cell's
+    traffic, 32 known poses a room, at 160 x 120 and 128^3 over 3 m)
+    through ``portbench/drivers/building.py`` on the card: every room
+    fitted, every replayed room directory (2 a floor) equal to the plain
+    reference's, the assembly within the cell's limits, and the grid's 6
+    wall connections
+    (floor 0: 1 on X and 1 on Z; floor 1: 1 on X; 3 ceilings under a
+    floor)."""
+    spec = _portbench()
+    cell = spec.resolve(spec.load_benchmark(), "house-vga-512.building")
+    qqvga = dict(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
+    cfg = dict(cell.config, camera=dict(cell.config["camera"], **qqvga),
+               volume=dict(cell.config["volume"], resolution=128),
+               building=dict(cell.config["building"], rooms=6, floors=[3, 2, 1]))
+    cell = cell._replace(config=cfg, traffic=dict(cell.traffic, rooms=6, floors="3,2,1"))
+    res = spec.driver("building").run(cell, 2**31 + 7, 0.0, False, time.time())
+    assert res.failed == 0 and res.notes["unfitted"] == []
+    assert all(res.numbers[k] == 0.0 for k in ("cloud_gap_mm", "cloud_count_gap", "plane_gap",
+                                               "hull_gap_mm")), res.numbers
+    over = {k: v for k, v in res.numbers.items() if not v <= cell.limits["numbers"][k]}
+    assert not over, res.numbers
+    axes = sorted(ax for _, _, ax in res.window.got.connections)
+    assert axes == [0, 0, 1, 1, 1, 2], res.window.got.connections
+
+
+@pytest.mark.gpu
+def test_full_room_export_keeps_its_far_wall(cuda, tmp_path):
+    """A room of the house cell at its widest stretch (1.05: 2.73 x 2.2 x
+    2.73 m) fused from its 32 known poses at kinect-vga-512's settings has
+    more surface voxels than 1 << 20, the reference package's cap, which
+    kept the first in raster order and so lost the +x wall; the export
+    keeps every one, and the room stage finds the room's 8 corners."""
+    from housescan_tpu_torch.capture.replay import DepthStream
+    from housescan_tpu_torch.config import Config
+    from housescan_tpu_torch.kinfu.scan import scan_to_room_dir
+    from housescan_tpu_torch.rooms import Scene, adopt_bbox_corners, load_room, suggest_corners
+
+    spec = _portbench()
+    cell = spec.resolve(spec.load_benchmark(), "house-vga-512.building")
+    drv = spec.driver("building")
+    poses = drv.room_poses(cell.traffic)
+    half, boxes = furnished_room()
+    half, boxes = half.copy(), boxes.copy()
+    half[[0, 2]] *= 1.05
+    boxes[:, :, [0, 2]] *= 1.05
+    mm = drv._scan.depth_stream_mm(cell.config["camera"], poses, half, boxes, 0.002, 2**31 + 8,
+                                   cuda)
+    frames = mm.cpu().numpy().astype(np.float32) * 0.001
+    room = scan_to_room_dir(DepthStream(frames, VGA, poses), tmp_path / "room", Config(),
+                            init_pose=poses[0], known_poses=poses, device=cuda)
+    from reference import scan as ref_scan
+
+    cloud = ref_scan.read_pcd(room / "cloud_bin.pcd")
+    assert len(cloud) > 1 << 20 and float(cloud[:, 0].max()) > 1.3
+    scene = Scene(device="cpu")
+    loaded = adopt_bbox_corners(scene, suggest_corners(scene, load_room(scene, room)))
+    assert len(loaded.corners) == 8
+
+
+@pytest.mark.gpu
+def test_known_pose_step_and_fit_objective_wait_on_nothing(cuda):
+    """Under PyTorch's sync debug mode, a known-pose step (its pose a host
+    array, as ``scan-building --known-poses`` hands it) and the cuboid
+    fit's objective on a batch of corner sets make the host wait on the
+    card nowhere; the step takes the known pose as it is."""
+    from housescan_tpu_torch.solvers.cuboid_fit import errfun_closest
+
+    poses, frames = _stream(QQVGA, 3, np.pi / 64, cuda)
+    st = kinfu_init(QQVGA, resolution=128, size_m=3.0, trunc=0.06, init_pose=poses[0],
+                    device=cuda)
+    for k in range(2):
+        st = kinfu_step(st, frames[k], QQVGA, forced_pose=poses[k])
+    pts = torch.rand(4, 8, 3, device=cuda)
+    params = torch.rand(4, 12, 10, device=cuda) + 0.5
+    errfun_closest(pts[:, None], params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = kinfu_step(st, frames[2], QQVGA, forced_pose=poses[2])
+        f = errfun_closest(pts[:, None], params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert f.shape == (4, 12) and bool(torch.isfinite(f).all())
+    np.testing.assert_array_equal(st.pose.cpu().numpy(), np.asarray(poses[2], np.float32))
