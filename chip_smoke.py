@@ -29,7 +29,7 @@ cite):
      the image, every kernel of the path launched in it and no plain
      version run, and one more step (on copies of the volume and planes)
      making the host wait on the card nowhere (PyTorch's sync debug
-     mode); then compare each kernel (K1 bilateral, K3 ICP level, K4
+     mode); then compare each kernel (K1 bilateral, K11 pyramid, K3 ICP level, K4
      stream integrate, K5 free carve, K6 plane raycast, K9 work-list
      prepass, K10 marching tetrahedra on the warm volume, bit-identical)
      with its plain PyTorch version on the card at the shapes the main
@@ -187,14 +187,14 @@ SM.
 
 ``python3 chip_smoke.py --probe`` runs phases 1-4, phase 7's K4 and K5
 comparisons and empty lists, phase 12's times of the main path's kernels
-(K1, K3-K6) and of K7 on box-512's packed volume, with K1's device time
+(K1, K11, K3-K6) and of K7 on box-512's packed volume, with K1's device time
 and estimated issue floor, K8 on dense-512's compare input and K7 on the
 orbit fused by K8 (phase 11's comparisons and readings, the render's
 time, phase 12's times), every kernel's resident blocks an SM, then K2
 on the systems of box-512's warm state (phase 9's comparison and
 readings, timed), and prints no result
 line. Copied into a checkout of an earlier commit whose package has
-every kernel it calls (K1-K10), it reads the same calls there: the
+every kernel it calls (K1-K11), it reads the same calls there: the
 before and after of a redesign, in turns within one run on the card.
 
 Numbers are printed beside the card's name and power limit. The line
@@ -238,6 +238,9 @@ KERNELS = {
     # no Pallas kernel: the reference's mesh is XLA array code too
     "marching_tets": ("housescan_tpu_torch/csrc/marching_tets.cu",
                       "none (XLA code: housescan_tpu/kinfu/marching_cubes.py:363)"),
+    # no Pallas kernel: the reference's pyramid is XLA array code too
+    "pyramid": ("housescan_tpu_torch/csrc/pyramid.cu",
+                "none (XLA code: housescan_tpu/kinfu/preprocess.py:228)"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -353,6 +356,7 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
     from housescan_tpu_torch.kinfu.preprocess import build_pyramid
     from housescan_tpu_torch.ops.icp_cuda import BAND_H, icp_level, icp_level_plain
     from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda, bilateral_filter_plain
+    from housescan_tpu_torch.ops.pyramid_cuda import pyramid_cuda, pyramid_plain
 
     errs, calls, bounds = {}, {}, {}
     h, w = intr.height, intr.width
@@ -365,6 +369,19 @@ def compare_kernels(st, st0, intr, depth, depth1, pose1, card):
         fail(f"K1 bilateral differs from its plain version by {errs['bilateral']} (0 required)")
     calls["bilateral"] = (lambda: bilateral_filter_cuda(depth), lambda: bilateral_filter_plain(depth))
     bounds["bilateral"] = bound(2 * h * w * 4, 9 * 49 * h * w)
+
+    # K11 from K1's output: every level's depth and map rows bit for bit
+    # (signed zeros too); the filtered depth read once, each output written
+    # once, ~60 float ops a map pixel
+    kd, km = pyramid_cuda(k, intr)
+    qd, qm = pyramid_plain(k, intr)
+    errs["pyramid"] = max(float((a - b).abs().max()) for a, b in zip(kd + km, qd + qm))
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(kd + km, qd + qm)):
+        fail(f"K11 pyramid differs from its plain version by {errs['pyramid']} (0 bits required)")
+    calls["pyramid"] = (lambda: pyramid_cuda(k, intr), lambda: pyramid_plain(k, intr))
+    bounds["pyramid"] = bound(4 * (h * w + sum(t.numel() for t in kd[1:] + km)),
+                              60 * sum(m[0].numel() for m in km))
 
     # K3 at the finest level, with the step's level-0 arguments: the packed
     # maps read once; ~120 float ops a pixel and iteration (association,
@@ -1418,7 +1435,7 @@ def run_dense(intr, poses, frames, device, card):
 REPS = {"bilateral": (50, 3), "icp_level": (20, 2), "tsdf_stream": (5, 1),
         "tsdf_free": (20, 1), "raycast_tiles": (50, 2), SMALL_K6: (50, 2), "solve6": (200, 3),
         "planes_extract": (20, 1), PACKED_K7: (20, 1), "tsdf_dense": (10, 1),
-        "chunk_select": (50, 3), "marching_tets": (10, 1)}
+        "chunk_select": (50, 3), "marching_tets": (10, 1), "pyramid": (50, 3)}
 
 
 def warm_states(intr, poses, frames, device, dtype, card):
@@ -1747,9 +1764,10 @@ def run_rooms(intr, device):
         del frames
     launches, plain = dict(cuda_lib.launch_counts), dict(cuda_lib.plain_counts)
     print(f"# rooms: scans' launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
-    # known poses skip tracking, so neither K1 (the tracker's filter) nor K3 runs
+    # known poses skip tracking, so neither K1 (the tracker's filter), K11 nor K3 runs
     check_counts("the room scans", launches, plain,
-                 tuple(k for k in cuda_lib.KERNEL_PATH if k not in ("bilateral", "icp_level")))
+                 tuple(k for k in cuda_lib.KERNEL_PATH
+                       if k not in ("bilateral", "pyramid", "icp_level")))
     torch.cuda.empty_cache()
 
     (gr, grm, gres, gxf, gpl), (cr, crm, cres, cxf, cpl) = (room_cycle(dirs, d, out)
@@ -2016,8 +2034,9 @@ def run_sharded(intr, poses, frames, device, card, box_pose):
           f"{err_mm:.3f} mm, {d_box:.3f} mm from box-{RES}'s final position [{card}]", flush=True)
     print(f"# sharded-{RES} launches {json.dumps(launches)} plain {json.dumps(plain)}", flush=True)
     n_steps = N_FRAMES + 1
-    want = {"bilateral": n_steps, "icp_level": 3 * n_steps, "tsdf_stream": 4 * n_steps,
-            "tsdf_free": 4 * n_steps, "raycast_tiles": 4 * n_steps, "chunk_select": 4 * n_steps}
+    want = {"bilateral": n_steps, "pyramid": n_steps, "icp_level": 3 * n_steps,
+            "tsdf_stream": 4 * n_steps, "tsdf_free": 4 * n_steps, "raycast_tiles": 4 * n_steps,
+            "chunk_select": 4 * n_steps}
     check_counts(f"sharded-{RES}", launches, plain, cuda_lib.KERNEL_PATH)
     if any(launches[k] != n for k, n in want.items()):
         fail(f"sharded-{RES}: launches {launches}, expected {want}")
@@ -2121,7 +2140,8 @@ def run_building(intr, device, card):
 
 # The device kernels' symbols of the kernel path, which phase 19's device
 # trace must name.
-TRACE_KERNELS = {"bilateral": "bilateral_kernel", "icp_level": "icp_level_kernel",
+TRACE_KERNELS = {"bilateral": "bilateral_kernel", "pyramid": "pyramid_level_kernel",
+                 "icp_level": "icp_level_kernel",
                  "tsdf_stream": "tsdf_stream_kernel", "tsdf_free": "tsdf_free_kernel",
                  "raycast_tiles": "raycast_tiles_kernel", "chunk_select": "chunk_classify_kernel"}
 

@@ -4,6 +4,9 @@ Each kernel module holds a dispatching wrapper, the kernel's plain
 PyTorch version, and a note on the Pallas kernel it replaces:
 
 - ``preprocess_cuda.bilateral_filter_cuda`` (K1, ``csrc/bilateral.cu``)
+- ``pyramid_cuda.pyramid_cuda`` (K11, ``csrc/pyramid.cu``: the tracker's
+  coarser depths and live maps after K1, which the reference computes as
+  XLA array code, not a Pallas kernel)
 - ``icp_cuda.icp_level`` (K3, ``csrc/icp.cu``; the 6x6 solve of
   ``solve6.py`` inlined as ``csrc/solve6.cuh``)
 - ``solve6.solve_twist_compose`` (K2, ``csrc/solve6.cu``: that solve as

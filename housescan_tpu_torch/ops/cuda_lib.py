@@ -44,14 +44,15 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles", "solve6",
-           "planes_extract", "tsdf_dense", "chunk_select", "marching_tets", "convex_hull")
+           "planes_extract", "tsdf_dense", "chunk_select", "marching_tets", "convex_hull",
+           "pyramid")
 # The kernels each path launches: the kernel path of kinfu_step
 # (use_pallas=True), its XLA path (use_pallas=False), and the dense path
 # (ops.tsdf_integrate_pallas then ops.raycast_planes.raycast_pallas). A
 # scan that writes its mesh adds K10 (marching_tets) to its path's.
-KERNEL_PATH = ("bilateral", "icp_level", "tsdf_stream", "tsdf_free", "raycast_tiles",
-               "chunk_select")
-XLA_PATH = ("bilateral", "solve6")
+KERNEL_PATH = ("bilateral", "pyramid", "icp_level", "tsdf_stream", "tsdf_free",
+               "raycast_tiles", "chunk_select")
+XLA_PATH = ("bilateral", "pyramid", "solve6")
 DENSE_PATH = ("tsdf_dense", "planes_extract", "raycast_tiles")
 
 # Volume layouts of the kernels' storage template (csrc/common.cuh).
@@ -79,6 +80,9 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # depth, out, h, w, radius, sigma_space, sigma_depth, stream
     "hs_bilateral": [_P, _P, _I, _I, _I, _D, _D, _P],
+    # host arrays of depth and map pointers, levels, h, w, fx, fy, cx, cy,
+    # sigma_depth, max_depth_jump, stream
+    "hs_pyramid": [_P, _P, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P],
     # packed, hp, wp, pixels a block, of them in shared memory, host
     # params[32], prev pose, dist gate, tight gate (device scalars or
     # null), pose0, state + partials, n_iters, stream
@@ -130,6 +134,7 @@ _RESTYPES = {"hs_convex_hull_2d": _L}
 # in order, at the launch configuration of its wrapper.
 OCCUPANCY = {
     "bilateral": ("hs_bilateral_occupancy", ("bilateral_kernel",)),
+    "pyramid": ("hs_pyramid_occupancy", ("pyramid_level_kernel",)),
     "icp_level": ("hs_icp_occupancy", ("icp_level_kernel",)),
     "tsdf_stream": ("hs_tsdf_stream_occupancy", ("packed", "float32", "bfloat16")),
     "tsdf_free": ("hs_tsdf_free_occupancy", ("packed", "float32", "bfloat16")),

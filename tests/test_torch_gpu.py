@@ -9,7 +9,9 @@ Inputs come from the port's own synthetic module (no JAX). The library
 builds with --fmad=false, so kernel and plain version run the same
 float32 operations; they differ only in summation order. Bounds: K1
 bit-identical (each pixel sums its taps in the plain version's order), at
-odd sizes and every radius too; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
+odd sizes and every radius too; K11 (the pyramid after K1) bit-identical,
+every level's depth and map rows as int32, at VGA, HD and an odd size, 1,
+3 and 4 levels; K3 pose 5e-5, rmse 1e-4, correspondences max(5, n/200) (the
 reference's bounds for its fused level), and two runs of K3 on the same
 inputs bit-identical (no float atomics); K4 weights identical, the tsdf
 within one quantization step (packed) or 1e-6 (float32) on >= 99.9% of
@@ -76,6 +78,7 @@ from housescan_tpu_torch.ops.icp_cuda import (
     icp_level_state,
 )
 from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda, bilateral_filter_plain
+from housescan_tpu_torch.ops.pyramid_cuda import pyramid_cuda, pyramid_plain
 from housescan_tpu_torch.ops.solve6 import solve_twist_compose, solve_twist_plain
 from housescan_tpu_torch.ops.raycast_tiles import (
     _ray_params,
@@ -189,6 +192,67 @@ def test_bilateral_kernel_bit_identical_on_sparse_frames(cuda, frame):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(got, d)
+
+
+# K11's sizes: the orbit cells' cameras and a crop no block divides
+PYRAMID_CAMS = {"640x480": VGA, "1280x720": Intrinsics(1280, 720, 674.4, 674.4, 639.5, 359.5),
+                "161x121": Intrinsics(161, 121, 525.0, 525.0, 319.5, 239.5)}
+
+
+def _pyramid_frame(device, intr, frame):
+    """A raw frame at ``intr``'s size: the bench orbit's room; the room
+    with holes and depth jumps over 0.08 m; or a smooth surface whose depth
+    is valid on every border pixel and continuous across the wrap, so the
+    normals' wrapped neighbours and the downsample's zero fill both act."""
+    h, w = intr.height, intr.width
+    if frame == "border":
+        y, x = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                              torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+        return 2.0 + 0.03 * torch.sin(x * (2 * np.pi / w)) + 0.02 * torch.cos(y * (2 * np.pi / h))
+    cam = intr if w != 161 else VGA
+    d = _stream(cam, 1, 0.0, device)[1][0][:h, :w].clone()
+    if frame == "holes":
+        d[h // 3: h // 3 + h // 8, w // 4: w // 4 + w // 6] = 0.0  # a hole
+        d[: h // 5] *= 1.25  # a jump of ~0.5 m along a row
+        d[:, w // 2: w // 2 + 3] += 0.09  # two jumps just over the gate
+        d[::7, ::5] = 0.0  # scattered dropouts
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["orbit", "holes", "border"])
+@pytest.mark.parametrize("size", list(PYRAMID_CAMS))
+def test_pyramid_kernel_bit_identical_to_plain(cuda, size, frame):
+    """K11 against its plain version on K1's output, at levels 1, 3 and 4:
+    every level's depth and all six map rows bit for bit (compared as
+    int32, so a zero's sign counts); a call makes no host synchronisation
+    and adds one to ``launch_counts["pyramid"]``."""
+    intr = PYRAMID_CAMS[size]
+    d0 = bilateral_filter_cuda(_pyramid_frame(cuda, intr, frame))
+    for levels in (1, 3, 4):
+        got_d, got_m = pyramid_cuda(d0, intr, levels)
+        want_d, want_m = pyramid_plain(d0, intr, levels)
+        assert len(got_d) == len(got_m) == levels and got_d[0] is d0
+        for lvl in range(levels):
+            shape = (intr.height >> lvl, intr.width >> lvl)
+            assert got_d[lvl].shape == want_d[lvl].shape == shape
+            assert got_m[lvl].shape == want_m[lvl].shape == (6, *shape)
+            assert torch.equal(got_d[lvl].view(torch.int32), want_d[lvl].view(torch.int32)), lvl
+            for row in range(6):
+                assert torch.equal(got_m[lvl][row].view(torch.int32),
+                                   want_m[lvl][row].view(torch.int32)), (lvl, row)
+        assert bool((want_m[0][3:6] != 0).any())
+    if frame == "border":  # every border pixel's normal, wrap and all
+        assert bool((want_m[0][5][[0, -1]] != 0).all()) and bool((want_m[0][5][:, [0, -1]] != 0).all())
+    torch.cuda.synchronize()
+    before = dict(cuda_lib.launch_counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pyramid_cuda(d0, intr, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts == dict(before, pyramid=before["pyramid"] + 1)
 
 
 @pytest.mark.gpu

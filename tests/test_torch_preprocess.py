@@ -30,6 +30,7 @@ from housescan_tpu_torch.kinfu.camera import Intrinsics
 from housescan_tpu_torch.kinfu.preprocess import bilateral_filter, build_pyramid
 from housescan_tpu_torch.ops import cuda_lib
 from housescan_tpu_torch.ops.preprocess_cuda import bilateral_filter_cuda
+from housescan_tpu_torch.ops.pyramid_cuda import pyramid_cuda
 
 JINTR = JIntrinsics(width=160, height=120, fx=131.25, fy=131.25, cx=79.5, cy=59.5)
 INTR = Intrinsics(*JINTR)
@@ -98,6 +99,27 @@ def test_pyramid_matches_reference():
         live_valid_t = (tp.maps[lvl][3:6] ** 2).sum(0).numpy() > 0.25
         live_valid_j = (np.asarray(jp.maps[lvl])[3:6] ** 2).sum(0) > 0.25
         assert (live_valid_t == live_valid_j).mean() > 0.999
+
+
+def test_pyramid_wrapper_uses_plain_on_cpu():
+    """K11's wrapper takes its plain version for a CPU tensor (counted in
+    ``plain_counts``, nothing launched), ``build_pyramid`` goes through it,
+    and the result still holds to the reference's pyramid as above."""
+    d = _depth()
+    d0 = bilateral_filter_cuda(torch.from_numpy(d))
+    before = dict(cuda_lib.plain_counts), dict(cuda_lib.launch_counts)
+    depths, live = pyramid_cuda(d0, INTR, 3)
+    assert cuda_lib.plain_counts["pyramid"] == before[0]["pyramid"] + 1
+    assert cuda_lib.launch_counts == before[1]
+    tp = build_pyramid(torch.from_numpy(d), INTR, levels=3)
+    assert cuda_lib.plain_counts["pyramid"] == before[0]["pyramid"] + 2
+    jp = j_build_pyramid(jnp.asarray(d), JINTR, levels=3)
+    assert depths[0] is d0
+    for lvl in range(3):
+        assert live[lvl].shape == (6, 120 >> lvl, 160 >> lvl)
+        assert torch.equal(tp.depths[lvl], depths[lvl]) and torch.equal(tp.maps[lvl], live[lvl])
+        np.testing.assert_allclose(depths[lvl].numpy(), np.asarray(jp.depths[lvl]), atol=2e-5)
+        np.testing.assert_allclose(live[lvl].numpy(), np.asarray(jp.maps[lvl]), atol=1e-4)
 
 
 def test_map_code_matches_reference():

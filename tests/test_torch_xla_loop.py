@@ -114,7 +114,7 @@ def test_step_matches_reference_from_carried_state(loop):
     np.testing.assert_array_equal(st.volume.weight.numpy(), want["data"][1])
     assert int(st.frame_index) == 3
     assert cuda_lib.plain_counts["bilateral"] == 1 and cuda_lib.plain_counts["solve6"] == 19
-    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNEL_PATH if k != "bilateral")
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNEL_PATH if k not in cuda_lib.XLA_PATH)
 
 
 def test_tracking_short_sweep(loop):
@@ -203,7 +203,7 @@ def test_scan_produces_reference_layout(stream_file, ref_scans, tmp_path):
     out = scan_to_room_dir(load_stream(path), tmp_path / "room_scan", config=SCAN_CFG,
                            init_pose=poses[0], downsample_to=8192, device="cpu")
     assert cuda_lib.plain_counts["solve6"] > 0 and cuda_lib.plain_counts["bilateral"] == 6
-    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNEL_PATH if k != "bilateral")
+    assert all(cuda_lib.plain_counts[k] == 0 for k in cuda_lib.KERNEL_PATH if k not in cuda_lib.XLA_PATH)
     for name in ("cloud_downsampled.pcd", "cloud_bin.pcd", "planes.txt", "cloud_plane_hull0.pcd",
                  "trajectory.npz"):
         assert (out / name).exists(), name
